@@ -3,7 +3,8 @@
 The reference's informal perf checks are sparse/dense attention time
 ratios (``tests/test_attention.py:54-83``: r=256, s=72, 90% sparse) and an
 untimed 6-layer transformer driver (``tests/transformer/driver.py``: b=4,
-s=512, h=512, 8 heads, causal). This harness times both on TPU:
+s=512, h=512, 8 heads, causal). This harness times both on a GPU (it
+fails without one):
 
   * attention core (SDDMM -> softmax -> SpMM, batched panel kernels) vs
     dense masked softmax attention, same shapes;
@@ -15,31 +16,10 @@ Usage: python benchmarks/attention.py
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def timed_chain(out_of, iters):
-    import jax.numpy as jnp
-
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = out_of()
-    leaf = out
-    while isinstance(leaf, (tuple, list, dict)):
-        leaf = (list(leaf.values()) if isinstance(leaf, dict) else leaf)[0]
-    float(jnp.sum(leaf.reshape(-1)[:8]))
-    return time.perf_counter() - t0
-
-
-def slope(out_of, n_lo=5, n_hi=20, repeats=3):
-    timed_chain(out_of, 1)
-    t_lo = min(timed_chain(out_of, n_lo) for _ in range(repeats))
-    t_hi = min(timed_chain(out_of, n_hi) for _ in range(repeats))
-    return max(t_hi - t_lo, 1e-9) / (n_hi - n_lo) * 1e3
 
 
 def bench_attention_core(name, mask, r, hd=64):
@@ -47,9 +27,10 @@ def bench_attention_core(name, mask, r, hd=64):
     attention on the same mask. The reference's version of this is
     ``tests/test_attention.py:54-83`` (r=256, s=72, random 90% sparse).
 
-    Note the regimes: with *random* masks every MXU tile stays occupied, so
-    TPU-sparse attention cannot skip FLOPs and dense wins at short s (the
-    GPU reference skips at element granularity instead). The wins are
+    Note the regimes: with *random* masks every kernel tile stays
+    occupied, so block-sparse attention cannot skip FLOPs and dense wins at
+    short s (the reference skips at element granularity instead). The wins
+    are
     structured masks (causal/local -> block skip) and long sequences
     (sparse scores stay O(s*w) while dense is O(s^2))."""
     import jax
@@ -58,15 +39,14 @@ def bench_attention_core(name, mask, r, hd=64):
     from sputnik_tpu import many_mask as mm
     from sputnik_tpu.ops import batched_panel as bp
 
+    from sputnik_tpu.models.transformer import flash_tiles
     from sputnik_tpu.ops.fused_attention import fused_sparse_attention
+    from sputnik_tpu.utils.profiling import measure
 
     s = mask.shape[0]
     rng = np.random.RandomState(0)
     mt = mm.ManyMaskTopology.from_dense_masks(mask[None])
-    # measured r2: wider key tiles win for the fused kernel (512x1024 beats
-    # 512x512 on causal 16x2048 by ~25%; see RESULTS.md)
-    blk = 512 if s >= 512 else 128
-    bkk = min(2 * blk, s) if s >= 512 else blk
+    blk, bkk = flash_tiles(s, hd)
     spec = bp.BatchedPanelSpec.from_many_mask(mt, heads=r, bm=blk, bk=bkk)
     q = jnp.asarray(rng.randn(r, s, hd).astype(np.float32))
     k = jnp.asarray(rng.randn(r, s, hd).astype(np.float32))
@@ -85,29 +65,17 @@ def bench_attention_core(name, mask, r, hd=64):
         w = jax.nn.softmax(sc, axis=-1) * (mask_j != 0)
         return jnp.einsum("rqk,rkd->rqd", w, v)
 
-    from sputnik_tpu import int8 as q8
-
-    @jax.jit
-    def sparse_attn_int8(q, k, v):
-        return q8.attention_int8(spec, q, k, v)
-
     from sputnik_tpu.ops.fused_attention import warm_flash_meta
     warm_flash_meta(spec)
-    ms_sparse = slope(lambda: sparse_attn(q, k, v))
-    ms_int8 = slope(lambda: sparse_attn_int8(q, k, v))
-    ms_dense = slope(lambda: dense_attn(q, k, v))
-    int8_rel = float(jnp.max(jnp.abs(sparse_attn_int8(q, k, v)
-                                     - sparse_attn(q, k, v)))
-                     / jnp.max(jnp.abs(sparse_attn(q, k, v))))
+    ms_sparse = measure(sparse_attn, q, k, v)
+    ms_dense = measure(dense_attn, q, k, v)
     print(json.dumps({
         "config": f"{name} r={r} s={s} hd={hd}",
         "density": round(mt.topologies[0].nnz / s ** 2, 4),
         "block_occupancy": round(spec.views[0].block_density, 4),
-        "sparse_ms": round(ms_sparse, 4),
-        "int8_ms": round(ms_int8, 4),
-        "int8_rel_err": round(int8_rel, 4),
-        "dense_ms": round(ms_dense, 4),
-        "speedup_vs_dense": round(ms_dense / ms_sparse, 3),
+        "sparse_ms": ms_sparse,
+        "dense_ms": ms_dense,
+        "speedup_vs_dense": ms_dense / ms_sparse,
     }), flush=True)
 
 
@@ -118,6 +86,7 @@ def bench_transformer_driver():
     import jax.numpy as jnp
 
     from sputnik_tpu.models import SparseTransformer
+    from sputnik_tpu.utils.profiling import measure
 
     b, s, h, heads, layers, ffn = 4, 512, 512, 8, 6, 2048
     rng = np.random.RandomState(0)
@@ -134,8 +103,8 @@ def bench_transformer_driver():
     step = jax.jit(jax.value_and_grad(
         lambda p: jnp.mean(model.apply(p, x) ** 2)))
 
-    ms_fwd = slope(lambda: fwd(params), n_lo=3, n_hi=12)
-    ms_step = slope(lambda: step(params)[0], n_lo=3, n_hi=12)
+    ms_fwd = measure(fwd, params)
+    ms_step = measure(step, params)
 
     # dense-equivalent train step, SAME parameters and layer math but
     # dense masked softmax attention (the reference reports sparse/dense
@@ -167,17 +136,22 @@ def bench_transformer_driver():
 
     dstep = jax.jit(jax.value_and_grad(
         lambda p: jnp.mean(dense_apply(p, x) ** 2)))
-    ms_dense_step = slope(lambda: dstep(params)[0], n_lo=3, n_hi=12)
+    ms_dense_step = measure(dstep, params)
     print(json.dumps({
         "config": f"transformer driver b={b} s={s} h={h} x{layers}L",
-        "forward_ms": round(ms_fwd, 3),
-        "train_step_ms": round(ms_step, 3),
-        "dense_train_step_ms": round(ms_dense_step, 3),
-        "sparse_over_dense": round(ms_step / ms_dense_step, 3),
+        "forward_ms": ms_fwd,
+        "train_step_ms": ms_step,
+        "dense_train_step_ms": ms_dense_step,
+        "sparse_over_dense": ms_step / ms_dense_step,
     }), flush=True)
 
 
 if __name__ == "__main__":
+    from sputnik_tpu.utils import enable_compile_cache
+    from sputnik_tpu.utils.device import require_gpu
+
+    require_gpu()
+    enable_compile_cache()
     from sputnik_tpu.patterns import (
         causal_mask,
         local_window_mask,

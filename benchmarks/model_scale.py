@@ -6,7 +6,7 @@ dispatches to it. This harness measures where production models live:
 longer sequences and banded long-context topologies, full train steps
 (fwd + bwd + SGD) on real shapes.
 
-Rows (real TPU; one session per run):
+Rows (on a GPU; one process per run):
   * causal s=2048, 12L, h=1024  — mid-scale LM pretraining shape
   * banded w=512 s=4096, 6L    — long-context fine-tuning shape
   * banded w=256 s=8192, 4L    — the memory-bound long-context regime
@@ -25,19 +25,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _enable_compile_cache():
-    import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/root/.cache/jax_comp")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
-    except Exception:
-        pass
-
-
-def sparse_step(masks, layers, h, heads, ffn, stream=None):
+def sparse_step(masks, layers, h, heads, ffn, stream=None, layout="flash"):
     import jax
     import jax.numpy as jnp
     import optax
@@ -47,7 +35,7 @@ def sparse_step(masks, layers, h, heads, ffn, stream=None):
     model = SparseTransformer.from_masks(
         masks, num_layers=layers, hidden_size=h, num_heads=heads,
         ffn_hidden_size=ffn, use_residual=True, use_layernorm=True,
-        activation="gelu", attention_layout="flash", flash_stream=stream)
+        activation="gelu", attention_layout=layout, flash_stream=stream)
     b, s = masks.shape[0], masks.shape[1]
     x = jnp.asarray(np.random.RandomState(0).randn(b, s, h).astype(
         np.float32))
@@ -66,57 +54,9 @@ def sparse_step(masks, layers, h, heads, ffn, stream=None):
 
 
 def dense_step(masks, layers, h, heads, ffn):
-    import flax.linen as nn
-    import jax
-    import jax.numpy as jnp
-    import optax
-
-    b, s = masks.shape[0], masks.shape[1]
-    mask = jnp.asarray(masks)
-    hd = h // heads
-
-    class L(nn.Module):
-        @nn.compact
-        def __call__(self, x):
-            y = nn.LayerNorm()(x)
-            qkv = nn.Dense(3 * h)(y)
-            q, k, v = jnp.split(qkv, 3, axis=-1)
-
-            def heads_(t):
-                return t.reshape(b, s, heads, hd).transpose(0, 2, 1, 3)
-
-            q, k, v = heads_(q), heads_(k), heads_(v)
-            sc = jnp.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(hd)
-            sc = jnp.where(mask[:, None] != 0, sc, -1e30)
-            w = jax.nn.softmax(sc, axis=-1) * (mask[:, None] != 0)
-            o = jnp.einsum("bhqk,bhkd->bhqd", w, v)
-            o = o.transpose(0, 2, 1, 3).reshape(b, s, h)
-            x = x + nn.Dense(h)(o)
-            y = nn.LayerNorm()(x)
-            return x + nn.Dense(h)(nn.gelu(nn.Dense(ffn)(y)))
-
-    class M(nn.Module):
-        @nn.compact
-        def __call__(self, x):
-            for _ in range(layers):
-                x = L()(x)
-            return x
-
-    model = M()
-    x = jnp.asarray(np.random.RandomState(0).randn(b, s, h).astype(
-        np.float32))
-    params = model.init(jax.random.PRNGKey(0), x)
-    tx = optax.sgd(1e-3)
-    opt = tx.init(params)
-
-    @jax.jit
-    def step(p, o, xx):
-        l, g = jax.value_and_grad(
-            lambda pp: jnp.mean(model.apply(pp, xx) ** 2))(p)
-        u, o = tx.update(g, o, p)
-        return optax.apply_updates(p, u), o, l
-
-    return step, params, opt, x
+    """The same model and step with dense masked attention (the
+    ``attention_layout="xla"`` path): the dense baseline."""
+    return sparse_step(masks, layers, h, heads, ffn, layout="xla")
 
 
 def main():
@@ -124,12 +64,14 @@ def main():
     ap.add_argument("--small", action="store_true")
     args = ap.parse_args()
 
-    import jax
-
     from sputnik_tpu.patterns import causal_mask, local_window_mask
+    from sputnik_tpu.utils import enable_compile_cache
+    from sputnik_tpu.utils.device import require_gpu
     from sputnik_tpu.utils.profiling import measure
 
-    assert jax.devices()[0].platform == "tpu" or args.small
+    if not args.small:
+        require_gpu()
+    enable_compile_cache()
     out = {}
 
     if args.small:
@@ -155,14 +97,13 @@ def main():
         for variant, stream in (("", None), ("_bf16", "bf16")):
             step, params, opt, x = sparse_step(masks, layers, h, heads,
                                                ffn, stream)
-            out[f"{tag}_sparse{variant}_ms"] = round(
-                measure(step, params, opt, x), 3)
+            out[f"{tag}_sparse{variant}_ms"] = measure(step, params, opt,
+                                                       x)
         if run_dense:
             try:
                 step, params, opt, x = dense_step(masks, layers, h,
                                                   heads, ffn)
-                out[f"{tag}_dense_ms"] = round(
-                    measure(step, params, opt, x), 3)
+                out[f"{tag}_dense_ms"] = measure(step, params, opt, x)
             except Exception as e:     # dense OOMs at long s — the point
                 out[f"{tag}_dense_ms"] = f"OOM/ERR {str(e)[:60]}"
         print(json.dumps({k: v for k, v in out.items()

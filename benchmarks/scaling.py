@@ -1,28 +1,25 @@
-"""Multi-chip scaling harness (BASELINE north star: >= 80% nnz/s on 2+).
+"""Multi-card scaling harness (BASELINE north star: >= 80% nnz/s on 2+).
 
-Real multi-chip hardware is not reachable from this environment, so the
-scaling claim is assembled from three measurable pieces (model in
-``sputnik_tpu/parallel/comm_model.py``; results in RESULTS.md "Scaling"):
+The scaling claim is assembled from three measurable pieces (model in
+``sputnik_tpu/parallel/comm_model.py``):
 
-  1. **Comm-volume accounting** — exact per-device ICI bytes for each
+  1. **Comm-volume accounting** — exact per-device link bytes for each
      sharded op, derived from the same block metadata the kernels run
      (ppermute slice sizes, psum payload shapes), at ndev in {1,2,4,8}.
   2. **Functional validation on the 8-virtual-device CPU mesh** — the
      sharded ops run fwd+bwd at every ndev; per-device nnz balance and
-     the measured (CPU, interpret-mode — NOT projective) nnz/s sanity
+     the measured (CPU, plain route — NOT projective) nnz/s sanity
      numbers confirm the harness itself.
-  3. **Measured 1-chip shard_map overhead on the real TPU** (``--tpu``):
-     the same kernel through the distribution machinery (shard_map +
-     stacked device-varying metadata, ndev=1 mesh) vs the unsharded
-     panel op — the only distribution cost measurable without a second
-     chip.
+  3. **Measured 1-card shard_map overhead on a GPU** (``--gpu``): the
+     same kernel through the distribution machinery (shard_map + stacked
+     device-varying metadata, ndev=1 mesh) vs the unsharded panel op.
 
-The projection combines the measured single-chip time, the exact comm
-bytes, and public v5e link rates (no compute/comm overlap — conservative).
+The projection combines the measured single-card times, the exact comm
+bytes, and the published H100 NVLink rate (``comm_model.H100``).
 
 Usage:
   python benchmarks/scaling.py             # CPU mesh: accounting + dryrun
-  python benchmarks/scaling.py --tpu       # real TPU: 1-chip overhead +
+  python benchmarks/scaling.py --gpu       # GPU: 1-card overhead +
                                            #   projection at headline size
 """
 
@@ -35,25 +32,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def _chain_ms(fn, args, n_lo=5, n_hi=20, reps=3):
-    import jax.numpy as jnp
-
-    def chain(iters):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = fn(*args)
-        leaf = out
-        while isinstance(leaf, (tuple, list)):
-            leaf = leaf[0]
-        float(jnp.sum(leaf.reshape(-1)[:8].astype(jnp.float32)))
-        return time.perf_counter() - t0
-
-    chain(1)  # warm
-    t_lo = min(chain(n_lo) for _ in range(reps))
-    t_hi = min(chain(n_hi) for _ in range(reps))
-    return max(t_hi - t_lo, 1e-9) / (n_hi - n_lo) * 1e3
 
 
 def _mk_problem(size, density, banded, rng):
@@ -151,9 +129,9 @@ def cpu_mode():
     print(json.dumps(out, indent=1, default=float))
 
 
-def tpu_mode():
-    """Real TPU: (a) 1-chip shard_map overhead, (b) projection at the
-    headline config from measured T1 + exact comm bytes."""
+def gpu_mode():
+    """GPU: (a) 1-card shard_map overhead, (b) projection at the headline
+    config from measured T1 + exact comm bytes."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -165,7 +143,12 @@ def tpu_mode():
     from sputnik_tpu.parallel.sharded_ops import (
         ShardedPanelSpec, sharded_spmm)
 
-    assert jax.default_backend() == "tpu", "tpu mode needs the TPU"
+    from sputnik_tpu.utils import enable_compile_cache
+    from sputnik_tpu.utils.device import require_gpu
+    from sputnik_tpu.utils.profiling import measure
+
+    require_gpu()
+    enable_compile_cache()
     size = int(os.environ.get("BENCH_SIZE", 4096))
     density = float(os.environ.get("BENCH_DENSITY", 0.1))
     rng = np.random.RandomState(0)
@@ -173,20 +156,19 @@ def tpu_mode():
     vals = rng.randn(topo.nnz_pad).astype(np.float32)
     dense = jnp.asarray(rng.randn(size, size).astype(np.float32))
 
-    # unsharded single-chip reference (same training tiles as the sharded
-    # path's (128, 128)-block kernels use bn=512; match bn for a clean
-    # machinery-only comparison)
-    spec1 = P.PanelSpec(topo, bm=128, bk=128, bn=512)
+    # unsharded single-card reference at the sharded path's (128, 128)
+    # blocks (a clean machinery-only comparison)
+    spec1 = P.PanelSpec(topo, bm=128, bk=128)
     panel1 = jnp.asarray(P.values_to_panel_np(topo, vals, 128, 128))
     f_un = jax.jit(lambda p, d: P.spmm(spec1, p, d))
-    t_un = _chain_ms(f_un, (panel1, dense))
+    t_un = measure(f_un, panel1, dense)
 
     mesh1 = Mesh(np.array(jax.devices()[:1]), ("x",))
     part = RowPartition(topo, 1, bm=128, balance=False)
     sspec = ShardedPanelSpec(part, bm=128, bk=128, mesh=mesh1, axis="x")
     panels = jnp.asarray(sspec.stack_values(vals))
     f_sh = jax.jit(lambda p, d: sharded_spmm(sspec, p, d))
-    t_sh = _chain_ms(f_sh, (panels, dense))
+    t_sh = measure(f_sh, panels, dense)
 
     # banded (local-window) topology: the halo path's design target —
     # measure its single-chip fwd in this session at the banded tiles.
@@ -196,12 +178,11 @@ def tpu_mode():
 
     btopo = local_window_topology(size, window=256)
     bvals = rng.randn(btopo.nnz_pad).astype(np.float32)
-    bspec1 = P.PanelSpec(btopo, bm=512, bk=128, bn=1024)
+    bspec1 = P.PanelSpec(btopo)
     bpanel = jnp.asarray(
-        P.values_to_panel_np(btopo, bvals, 512, 128)).astype(jnp.bfloat16)
-    bdense = dense.astype(jnp.bfloat16)
+        P.values_to_panel_np(btopo, bvals, bspec1.bm, bspec1.bk))
     f_band = jax.jit(lambda p, d: P.spmm(bspec1, p, d))
-    t_band = _chain_ms(f_band, (bpanel, bdense))
+    t_band = measure(f_band, bpanel, dense)
 
     # long-context banded (s=32768, same +-256 window, q=4096): the halo
     # is CONSTANT in s while per-device compute grows with it — the
@@ -209,21 +190,28 @@ def tpu_mode():
     s32 = 32768
     btopo32 = local_window_topology(s32, window=256)
     bvals32 = rng.randn(btopo32.nnz_pad).astype(np.float32)
-    bspec32 = P.PanelSpec(btopo32, bm=512, bk=128, bn=1024)
+    bspec32 = P.PanelSpec(btopo32)
     bpanel32 = jnp.asarray(P.values_to_panel_np(
-        btopo32, bvals32, 512, 128)).astype(jnp.bfloat16)
-    bdense32 = jnp.asarray(
-        rng.randn(s32, 4096).astype(np.float32)).astype(jnp.bfloat16)
+        btopo32, bvals32, bspec32.bm, bspec32.bk))
+    bdense32 = jnp.asarray(rng.randn(s32, 4096).astype(np.float32))
     f_band32 = jax.jit(lambda p, d: P.spmm(bspec32, p, d))
-    t_band32 = _chain_ms(f_band32, (bpanel32, bdense32))
+    t_band32 = measure(f_band32, bpanel32, bdense32)
 
-    # projections from the measured kernel times this session + exact
-    # comm bytes. The attention T1 is the r2-benched fused sparse
-    # attention full grad at s=32768, local window ±256, r=4 heads,
-    # hd=64: 9.08 ms (RESULTS.md "Long sequences" table) — re-measuring
-    # it here would add ~10 min of compile for a number already recorded.
-    T1_ATTN_GRAD_MS = 9.08
+    # the attention T1: fused sparse attention full grad at s=32768, local
+    # window +-256, r=4 heads, hd=64, measured in this process
+    from sputnik_tpu.models.transformer import flash_tiles
+    from sputnik_tpu.ops import batched_panel as bp
+    from sputnik_tpu.ops.fused_attention import (fused_sparse_attention,
+                                                 warm_flash_meta)
+
     ATTN_S, ATTN_HD, ATTN_R = 32768, 64, 4
+    abm, abk = flash_tiles(ATTN_S, ATTN_HD)
+    aspec = bp.BatchedPanelSpec([local_window_topology(ATTN_S, window=256)],
+                                heads=ATTN_R, bm=abm, bk=abk)
+    warm_flash_meta(aspec)
+    qa = jnp.asarray(rng.randn(ATTN_R, ATTN_S, ATTN_HD).astype(np.float32))
+    T1_ATTN_GRAD_MS = measure(jax.jit(jax.grad(lambda a: jnp.sum(
+        fused_sparse_attention(aspec, a, a, a)))), qa)
     proj = {}
     for ndev in (2, 4, 8):
         partn = RowPartition(topo, ndev, bm=8)
@@ -231,17 +219,14 @@ def tpu_mode():
         comm = cm.spmm_comm_bytes(specn, size)
         bpart = RowPartition(btopo, ndev, bm=8, balance=False)
         bspecn = ShardedPanelSpec(bpart, bm=128, bk=128)
-        # operands stream bf16 on the measured path -> itemsize 2; the
-        # halo row count is constant in s, so the same extents price the
-        # s=32768 run (q=4096 there)
-        bcomm = cm.spmm_halo_comm_bytes(bspecn, size // ndev, size,
-                                        itemsize=2)
-        bcomm32 = cm.spmm_halo_comm_bytes(bspecn, size // ndev, 4096,
-                                          itemsize=2)
+        # f32 operands; the halo row count is constant in s, so the
+        # same extents price the s=32768 run (q=4096 there)
+        bcomm = cm.spmm_halo_comm_bytes(bspecn, size // ndev, size)
+        bcomm32 = cm.spmm_halo_comm_bytes(bspecn, size // ndev, 4096)
 
         # attention comm needs only n_pad + ndev — computed analytically
         # (building a 32768^2 dense mask here would be pure cost)
-        hd_pad = 128
+        hd_pad = ATTN_HD
         payload = ATTN_S * hd_pad * 4
         attn_mha = 2.0 * cm.psum_bytes(ATTN_R * payload, ndev)
         attn_gqa = 2.0 * cm.psum_bytes(1 * payload, ndev)
@@ -292,15 +277,14 @@ def tpu_mode():
         }
     # ---- N >= 2 HOSTS (DCN tier): 2 hosts x 4 chips. Two layouts priced
     # for the banded long-context workloads; the hierarchical model keeps
-    # the sp halos on ICI and crosses DCN with either (a) the ONE
+    # the sp halos on NVLink and crosses DCN with either (a) the ONE
     # host-boundary halo (row partition spanning hosts) or (b) the value-
-    # gradient all-reduce (dp across hosts). ICI volumes per chip reuse
+    # gradient all-reduce (dp across hosts). NVLink volumes per card reuse
     # the ndev=4 in-host partition.
     part4 = RowPartition(btopo, 4, bm=8, balance=False)
     spec4 = ShardedPanelSpec(part4, bm=128, bk=128)
-    bcomm4 = cm.spmm_halo_comm_bytes(spec4, size // 4, size, itemsize=2)
-    bcomm4_32 = cm.spmm_halo_comm_bytes(spec4, size // 4, 4096,
-                                        itemsize=2)
+    bcomm4 = cm.spmm_halo_comm_bytes(spec4, size // 4, size)
+    bcomm4_32 = cm.spmm_halo_comm_bytes(spec4, size // 4, 4096)
     halo4 = bcomm4["halo_rows"]
     OF = cm.OVERLAP_FRACTIONS
     two_host = {}
@@ -309,8 +293,7 @@ def tpu_mode():
              3.0 * t_band, bcomm4["fwd"] + bcomm4["bwd"], size),
             ("spmm_fwdbwd_banded_s32k",
              3.0 * t_band32, bcomm4_32["fwd"] + bcomm4_32["bwd"], 4096)):
-        dcn_rowpart = 2.0 * cm.hier_halo_dcn_bytes(halo4, qcols, 2,
-                                                   itemsize=2)
+        dcn_rowpart = 2.0 * cm.hier_halo_dcn_bytes(halo4, qcols, 2)
         dcn_dp = cm.hier_dp_grad_dcn_bytes(int(btopo.nnz), 2)
         two_host[name] = {
             "rowpart_over_dcn": cm.project_scaling_hier(
@@ -324,7 +307,7 @@ def tpu_mode():
             "dcn_bytes": {"rowpart": dcn_rowpart, "dp_grad": dcn_dp},
         }
     # attention (kv-sharded halo) at s=32768: rowpart-over-DCN boundary
-    attn_halo4 = 2.0 * 2.0 * (halo4[0] + halo4[1]) * 1 * 128 * 4
+    attn_halo4 = 2.0 * 2.0 * (halo4[0] + halo4[1]) * 1 * ATTN_HD * 4
     two_host["attention_grad_s32k_gqa4_kvsharded"] = {
         "rowpart_over_dcn": cm.project_scaling_hier(
             T1_ATTN_GRAD_MS, attn_halo4,
@@ -335,12 +318,12 @@ def tpu_mode():
     }
 
     print(json.dumps({
-        "unsharded_ms": round(t_un, 4),
-        "sharded_ndev1_ms": round(t_sh, 4),
-        "shard_map_overhead_ms": round(t_sh - t_un, 4),
-        "overhead_pct": round((t_sh - t_un) / t_un * 100, 2),
-        "banded_w256_fwd_ms": round(t_band, 4),
-        "banded_w256_s32k_fwd_ms": round(t_band32, 4),
+        "unsharded_ms": t_un,
+        "sharded_ndev1_ms": t_sh,
+        "shard_map_overhead_ms": t_sh - t_un,
+        "overhead_pct": (t_sh - t_un) / t_un * 100,
+        "banded_w256_fwd_ms": t_band,
+        "banded_w256_s32k_fwd_ms": t_band32,
         "projection": proj,
         "two_host": two_host,
     }, indent=1, default=float))
@@ -348,6 +331,6 @@ def tpu_mode():
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     args = ap.parse_args()
-    (tpu_mode if args.tpu else cpu_mode)()
+    (gpu_mode if args.gpu else cpu_mode)()

@@ -1,14 +1,14 @@
 """Small-matrix regime (r4 verdict weak #6): 64^3-class problems run at
 ~0.13 SoL individually — latency floor + tile padding dominate a single
-tiny op. The TPU answer is BATCHING: B independent small topologies are
+tiny op. The answer is BATCHING: B independent small topologies are
 exactly the batched-panel replica axis (per-replica metadata, one kernel
 launch), amortising the fixed cost over the whole family.
 
-Rows (real TPU):
+Rows (on a GPU; fails without one):
   * one 64^3 spmm through the flat api (the r4 floor, for reference)
   * B=64 DISTINCT 64^3 topologies as ONE batched-panel call
   * the same B=64 family as 64 sequential flat calls inside one jit
-  * dense bf16 anchor at the batched shape (SoL denominator)
+  * dense f32 anchor at the batched shape (SoL denominator)
 
 Run:  python benchmarks/small_batch.py
 """
@@ -22,29 +22,19 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _enable_compile_cache():
-    import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/root/.cache/jax_comp")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
-    except Exception:
-        pass
-
-
 def main():
-    _enable_compile_cache()
     import jax
     import jax.numpy as jnp
 
     import sputnik_tpu as st
     from sputnik_tpu.ops import batched_panel as bp
     from sputnik_tpu.ops import panel_api as PA
+    from sputnik_tpu.utils import enable_compile_cache
+    from sputnik_tpu.utils.device import require_gpu
     from sputnik_tpu.utils.profiling import measure
 
-    assert jax.devices()[0].platform == "tpu"
+    require_gpu()
+    enable_compile_cache()
     out = {}
     rng = np.random.RandomState(0)
     n, d, B = 64, 0.1, 64
@@ -57,8 +47,7 @@ def main():
     mat = st.SparseMatrix((rng.rand(n, n) < d).astype(np.float32)
                           * rng.randn(n, n).astype(np.float32))
     f1 = jax.jit(lambda v, dd: st.spmm(mat.topology, v, dd))
-    out["single_flat_ms"] = round(
-        measure(f1, jnp.asarray(mat.values), denses[0]), 5)
+    out["single_flat_ms"] = measure(f1, jnp.asarray(mat.values), denses[0])
 
     # B distinct topologies = the batched-panel replica axis, ONE launch
     bm, bk = 64, 128                       # n=64 pads into one 128 tile
@@ -70,7 +59,7 @@ def main():
     dense_p = jnp.zeros((B, spec.n_pad, 128), jnp.float32)
     dense_p = dense_p.at[:, :n, :n].set(denses)
     fb = jax.jit(lambda p, dd: bp.spmm_bh(spec, p, dd))
-    out["batched_64x_ms"] = round(measure(fb, panels, dense_p), 5)
+    out["batched_64x_ms"] = measure(fb, panels, dense_p)
     out["batched_per_matrix_ms"] = round(out["batched_64x_ms"] / B, 6)
 
     # the same family as B sequential flat calls inside one jit
@@ -82,14 +71,10 @@ def main():
         return [st.spmm(t, v, dd[i])
                 for i, (t, v) in enumerate(zip(topos, vs))]
 
-    out["loop_64x_ms"] = round(measure(loop, vals, denses), 5)
+    out["loop_64x_ms"] = measure(loop, vals, denses)
 
-    # pack the batch into ONE block-diagonal topology at MXU tile size:
-    # a (512, 512) tile covers 8 of the 64^3 matrices, so the whole
-    # family runs in mb=8 fat grid steps instead of 64 latency-bound
-    # tiny ones (the per-grid-step DMA-latency floor is ~5 us at
-    # sub-bandwidth tile sizes — measured consistently here, on the MoE
-    # bank, and on the driver flash grids)
+    # pack the batch into ONE block-diagonal topology at the panel's
+    # default tile: a 128 x 128 tile covers 2 of the 64^3 matrices
     from sputnik_tpu.ops import panel_api as PAN
 
     Abd = np.zeros((B * n, B * n), np.float32)
@@ -100,23 +85,19 @@ def main():
             np.asarray(rng.randn(t.nnz)).astype(np.float32)
         Abd[i * n: (i + 1) * n, i * n: (i + 1) * n] = blk
     mat_bd = st.SparseMatrix(Abd)
-    spec_bd = PAN.PanelSpec(mat_bd.topology, bm=512, bk=512)
+    spec_bd = PAN.PanelSpec(mat_bd.topology)
     panel_bd = jnp.asarray(PAN.values_to_panel_np(
-        mat_bd.topology, mat_bd.values, 512, 512))
+        mat_bd.topology, mat_bd.values, spec_bd.bm, spec_bd.bk))
     dense_bd = jnp.asarray(np.asarray(denses).reshape(B * n, n))
     fbd = jax.jit(lambda p, dd: PAN.spmm(spec_bd, p, dd))
-    out["blockdiag_512_ms"] = round(measure(fbd, panel_bd, dense_bd), 5)
+    out["blockdiag_ms"] = measure(fbd, panel_bd, dense_bd)
     out["blockdiag_per_matrix_ms"] = round(
-        out["blockdiag_512_ms"] / B, 6)
+        out["blockdiag_ms"] / B, 6)
 
-    # dense bf16 anchor at the batched shape (SoL denominator)
-    a16 = jnp.asarray(rng.randn(B, n, n).astype(np.float32)
-                      ).astype(jnp.bfloat16)
-    d16 = denses.astype(jnp.bfloat16)
-    fd = jax.jit(lambda a, b: jnp.einsum(
-        "bij,bjk->bik", a, b,
-        preferred_element_type=jnp.float32))
-    out["dense_batch_ms"] = round(measure(fd, a16, d16), 5)
+    # dense f32 anchor at the batched shape (SoL denominator)
+    a = jnp.asarray(rng.randn(B, n, n).astype(np.float32))
+    fd = jax.jit(lambda a, b: jnp.einsum("bij,bjk->bik", a, b))
+    out["dense_batch_ms"] = measure(fd, a, denses)
     out["batched_vs_loop"] = round(
         out["loop_64x_ms"] / max(out["batched_64x_ms"], 1e-9), 2)
     out["batched_vs_dense"] = round(

@@ -1,40 +1,22 @@
 """Structured-sparsity benchmark: block-skip where it actually pays.
 
-Uniform-random sparsity leaves every MXU tile occupied, so the BSR kernel's
-time is density-flat (see RESULTS.md). Structured patterns — local-window /
+Uniform-random sparsity leaves every kernel tile occupied, so the BSR
+kernel's time is density-flat. Structured patterns — local-window /
 banded / block-diagonal masks, the kind sparse attention actually uses —
 leave most tiles empty, and the kernel's time scales with *block occupancy*
 instead. This benchmark shows SpMM time vs window size at 4096², against
 the dense-matmul time for the same shapes.
 
-Usage: python benchmarks/structured.py
+Usage: python benchmarks/structured.py   (fails without a GPU)
 """
 
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def timed_chain(fn, args, iters):
-    import jax.numpy as jnp
-
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args)
-    float(jnp.sum(out.reshape(-1)[:8]))
-    return time.perf_counter() - t0
-
-
-def slope(fn, args, n_lo=10, n_hi=40, repeats=3):
-    timed_chain(fn, args, 1)
-    t_lo = min(timed_chain(fn, args, n_lo) for _ in range(repeats))
-    t_hi = min(timed_chain(fn, args, n_hi) for _ in range(repeats))
-    return max(t_hi - t_lo, 1e-9) / (n_hi - n_lo) * 1e3
 
 
 def main():
@@ -44,38 +26,38 @@ def main():
     import sputnik_tpu as st
     from sputnik_tpu.patterns import local_window_mask
     from sputnik_tpu.ops import panel_api as P
+    from sputnik_tpu.utils import enable_compile_cache
+    from sputnik_tpu.utils.device import require_gpu
+    from sputnik_tpu.utils.profiling import measure
 
+    require_gpu()
+    enable_compile_cache()
     size = int(os.environ.get("BENCH_SIZE", 4096))
     rng = np.random.RandomState(0)
-    dense = jnp.asarray(rng.randn(size, size).astype(np.float32)
-                        ).astype(jnp.bfloat16)
+    dense = jnp.asarray(rng.randn(size, size).astype(np.float32))
 
-    # dense matmul reference on the same chip (same bf16-stream class)
-    a = jnp.asarray(rng.randn(size, size).astype(np.float32)
-                    ).astype(jnp.bfloat16)
-    f_dense = jax.jit(lambda x, y: jax.lax.dot(
-        x, y, preferred_element_type=jnp.float32))
-    dense_ms = slope(f_dense, (a, dense))
-    print(json.dumps({"config": "dense matmul", "ms": round(dense_ms, 4)}),
+    # dense matmul reference on the same card
+    a = jnp.asarray(rng.randn(size, size).astype(np.float32))
+    dense_ms = measure(jax.jit(lambda x, y: x @ y), a, dense)
+    print(json.dumps({"config": "dense matmul", "ms": dense_ms}),
           flush=True)
 
     for window in (128, 256, 512, 1024):
         mask = local_window_mask(size, window=window)
         A = mask * rng.randn(size, size).astype(np.float32)
         mat = st.SparseMatrix(A.astype(np.float32))
-        spec = P.PanelSpec(mat.topology, bm=512, bk=128, bn=1024)
+        spec = P.PanelSpec(mat.topology)
         panel = jnp.asarray(
-            P.values_to_panel_np(mat.topology, mat.values, spec.bm, spec.bk)
-        ).astype(jnp.bfloat16)
+            P.values_to_panel_np(mat.topology, mat.values, spec.bm, spec.bk))
         fn = jax.jit(lambda p, d: P.spmm(spec, p, d))
-        ms = slope(fn, (panel, dense))
+        ms = measure(fn, panel, dense)
         occ = spec.view.block_density
         print(json.dumps({
             "config": f"local_window w={window}",
-            "ms": round(ms, 4),
-            "block_occupancy": round(occ, 4),
-            "density": round(mat.topology.nnz / size ** 2, 4),
-            "speedup_vs_dense_matmul": round(dense_ms / ms, 2),
+            "ms": ms,
+            "block_occupancy": occ,
+            "density": mat.topology.nnz / size ** 2,
+            "speedup_vs_dense_matmul": dense_ms / ms,
         }), flush=True)
 
 

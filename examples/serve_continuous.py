@@ -37,8 +37,8 @@ def main():
     from sputnik_tpu.models.transformer import SparseTransformer
     from sputnik_tpu.ops.decode import insert_kv_slot
 
-    on_tpu = jax.default_backend() == "tpu"
-    if args.small or not on_tpu:
+    on_gpu = jax.default_backend() == "gpu"
+    if args.small or not on_gpu:
         slots, P, h, heads, layers, ffn, bk = 2, 64, 128, 4, 2, 256, 32
     else:
         slots, P, h, heads, layers, ffn, bk = 4, 512, 1024, 8, 6, 4096, 512

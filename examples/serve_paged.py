@@ -36,15 +36,15 @@ def main():
     from sputnik_tpu.models.serving_paged import PagedDecoder
     from sputnik_tpu.models.transformer import SparseTransformer
 
-    on_tpu = jax.default_backend() == "tpu"
-    if args.small or not on_tpu:
+    on_gpu = jax.default_backend() == "gpu"
+    if args.small or not on_gpu:
         slots, P, h, heads, layers, ffn, bk = 2, 128, 64, 2, 2, 96, 128
         n_new = 4
     else:
         slots, P, h, heads, layers, ffn, bk = 4, 1024, 1024, 8, 6, 4096, 256
         n_new = 32
     s_max = P + ((n_new + bk - 1) // bk) * bk
-    cache_dtype = jnp.bfloat16 if on_tpu else jnp.float32
+    cache_dtype = jnp.bfloat16 if on_gpu else jnp.float32
 
     masks = np.broadcast_to(np.tril(np.ones((P, P), np.float32)),
                             (slots, P, P)).copy()

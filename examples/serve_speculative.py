@@ -22,7 +22,7 @@ acceptance rate + ms/token against the plain one-token-per-step loop.
 Greedy target decoding is EXACT: whatever the draft proposes, the
 emitted sequence equals plain greedy decoding's (asserted below).
 
-No reference analog (``/root/reference`` has no serving path); this is
+No reference analog (the reference has no serving path); this is
 the framework's own serving bar (VERDICT r3 #3).
 
 Run:  python examples/serve_speculative.py [--small]
@@ -49,8 +49,8 @@ def main():
 
     from sputnik_tpu.models.lm import LMServer, SparseLM
 
-    on_tpu = jax.default_backend() == "tpu"
-    if args.small or not on_tpu:
+    on_gpu = jax.default_backend() == "gpu"
+    if args.small or not on_gpu:
         b, P, V, h, heads, layers, ffn = 2, 128, 256, 64, 2, 2, 96
         rounds = 4
     else:
@@ -82,7 +82,7 @@ def main():
                for l, kk in zip(leaves, keys)]
         return jax.tree.unflatten(tree, out)
 
-    kv_dtype = jnp.bfloat16 if on_tpu else jnp.float32
+    kv_dtype = jnp.bfloat16 if on_gpu else jnp.float32
     pages = (s_max // bk) * b * heads
 
     def make_server(lm_=None):

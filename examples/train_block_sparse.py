@@ -1,7 +1,7 @@
 """Block-structured dynamic sparse training: whole-tile RigL.
 
 Element-granular RigL converges to element-random patterns whose block
-occupancy is ~1.0 at MXU tile sizes — the kernels then do dense FLOPs
+occupancy is ~1.0 at kernel tile sizes — the kernels then do dense FLOPs
 through sparse bookkeeping. This loop keeps the pattern BLOCK-dense:
 
   * seed with ``patterns.block_random_topology`` (whole ``(bm, bk)``
@@ -16,9 +16,8 @@ through sparse bookkeeping. This loop keeps the pattern BLOCK-dense:
 
 Self-checks: the pattern stays block-dense through every update, and
 the evolved pattern trains to a LOWER loss than the same run with its
-initial pattern frozen. Measured payoff of staying block-dense: the MoE
-expert bank at block d<=0.25 runs FASTER than its dense einsum anchor
-(benchmarks/RESULTS.md r5 bank rows).
+initial pattern frozen. Staying block-dense is what lets the kernels skip
+work: their time scales with block occupancy, not element density.
 
 Run:  python examples/train_block_sparse.py [--small]
 """

@@ -37,8 +37,8 @@ def main():
     from sputnik_tpu.models.moe import SparseMoE
     from sputnik_tpu.models.transformer import SparseTransformer
 
-    on_tpu = jax.default_backend() == "tpu"
-    if args.small or not on_tpu:
+    on_gpu = jax.default_backend() == "gpu"
+    if args.small or not on_gpu:
         b, s, h, f, layers, heads, E = 2, 64, 32, 48, 4, 2, 4
     else:
         b, s, h, f, layers, heads, E = 4, 512, 512, 2048, 6, 8, 8

@@ -1,10 +1,10 @@
-"""sputnik_tpu — a TPU-native sparse linear-algebra framework.
+"""sputnik_tpu — a sparse linear-algebra framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of Torch-Sputnik
 (CSR SpMM / SDDMM / sparse softmax / transpose, differentiable, with sparse
-linear/attention/transformer modules on top), redesigned TPU-first: static
-padded CSR, precomputed transpose permutations, block-CSR MXU kernels, and a
-shard_map distribution layer the reference never had.
+linear/attention/transformer modules on top): static padded CSR,
+precomputed transpose permutations, block-CSR Pallas-Triton kernels for the
+GPU, and a shard_map distribution layer the reference never had.
 """
 
 from . import many_mask, ops, patterns
@@ -19,7 +19,6 @@ from .many_mask import (
 from .ops import (
     csr_transpose,
     decode,
-    int8,
     left_spmm,
     panel,
     sddmm,
@@ -36,8 +35,8 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    # `models` pulls in flax (an optional dependency) — load it lazily so
-    # the core op/topology layers work on a bare jax+numpy install.
+    # load the model/parallel/training layers lazily: importing the op and
+    # topology layers stays cheap
     if name in ("models", "parallel", "training"):
         import importlib
 
@@ -50,7 +49,6 @@ def __getattr__(name):
 __all__ = [
     "BlockView",
     "decode",
-    "int8",
     "CompressedView",
     "EllView",
     "ManyMaskTopology",

@@ -1,7 +1,7 @@
 /* Native topology builder — host-side runtime core.
  *
  * The reference's native layer is CUDA binding code (src/sputnik.cpp,
- * src/spmm_cuda.cu); on TPU the device side is Pallas, so the native
+ * src/spmm_cuda.cu); here the device side is Pallas, so the native
  * runtime work moves to the HOST: building CSR structure, transpose
  * permutations and block-panel metadata for big topologies (a 4096^2
  * mask is 16.7M entries — pure-numpy paths cost seconds at model build

@@ -1,4 +1,4 @@
-"""Derived TPU-friendly views of a CSR topology.
+"""Derived kernel-friendly views of a CSR topology.
 
 Two static reformulations are precomputed on the host (numpy) and cached on
 the topology; both are pure index bookkeeping — values flow through them with
@@ -10,14 +10,15 @@ ELL view
     kernel (row-wise reduction with no gather at all) and of row-ragged VPU
     ops in general.
 
-Block-CSR view (ELL at MXU-tile granularity)
+Block-CSR view (ELL at matrix-tile granularity)
     The matrix is cut into ``bm x bk`` tiles; tiles containing at least one
     nonzero are densified and listed per row-block, padded to the max
     blocks-per-row-block (``max_bpr``). This is the layout of the Pallas
     SpMM/SDDMM kernels: the "gather" of dense rows happens at *tile*
-    granularity through scalar-prefetched ``index_map``s (grid-level DMA),
-    which is the TPU-native answer to Sputnik's per-row vector gathers
-    (``third_party/sputnik`` CSR kernels — see SURVEY.md §7 "Hard parts" #1).
+    granularity (each program reads its block columns and slices whole
+    dense tiles), the block-level answer to Sputnik's per-row vector
+    gathers (``third_party/sputnik`` CSR kernels — see SURVEY.md §7 "Hard
+    parts" #1).
 
 Padding conventions (shared with ``topology.py``): padded element slots point
 at a dump slot one past the end of the flattened panel, padded block slots

@@ -9,7 +9,7 @@ share its mask (``tests/transformer/utils.py:17-38``,
 ``tests/test_attention_many_masks.py:90-155``). This module implements the
 family for real, as first-class differentiable ops.
 
-TPU-first raggedness: XLA needs static shapes, so instead of the reference's
+Static-shape raggedness: XLA needs static shapes, so instead of the reference's
 flat concatenation each mask's CSR is padded to the *shared* max ``nnz_pad``
 (SURVEY.md §7 "Hard parts" #2 — pad-to-bucket). Values are ``[R, nnz_pad]``
 with ``R = b*h``; padding slots are dropped structurally exactly as in the
@@ -55,7 +55,7 @@ class ManyMaskTopology:
         self.b = len(topologies)
         self.m, self.n = m, n
         self.nnzs = np.array([t.nnz for t in topologies], dtype=np.int32)
-        # shared bucket multiple; pass pad_to=128 to keep TPU lane
+        # shared bucket multiple; pass pad_to=128 to keep the wider
         # alignment a member was built with (the default mirrors the
         # reference's round-to-4, topology.DEFAULT_PAD_TO)
         self.nnz_pad = _round_up(int(self.nnzs.max(initial=1)),

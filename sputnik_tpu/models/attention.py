@@ -15,22 +15,23 @@ Fixes over the reference:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 import numpy as np
-
-import jax
 
 from ..ops import panel_api as P
 from ..topology import SparseTopology
 from .linear import SparseLinear
+from .module import Module
 
 __all__ = ["SparseAttention"]
 
 
-class SparseAttention(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SparseAttention(Module):
     """Multi-head attention over a shared sparse score topology.
 
     Attributes:
@@ -48,7 +49,7 @@ class SparseAttention(nn.Module):
     score_topology: SparseTopology
     weight_topologies: Optional[tuple] = None
 
-    def setup(self):
+    def _projections(self):
         if self.embed_dim % self.num_heads:
             raise ValueError(
                 f"embed_dim {self.embed_dim} not divisible by "
@@ -60,10 +61,7 @@ class SparseAttention(nn.Module):
                 np.ones((self.embed_dim, self.embed_dim), np.float32)
             )
             wts = (full, full, full, full)
-        self.q_proj = SparseLinear(topology=wts[0])
-        self.k_proj = SparseLinear(topology=wts[1])
-        self.v_proj = SparseLinear(topology=wts[2])
-        self.out_proj = SparseLinear(topology=wts[3])
+        return [SparseLinear(topology=t) for t in wts]
 
     @property
     def head_dim(self) -> int:
@@ -73,7 +71,7 @@ class SparseAttention(nn.Module):
         """SDDMM -> sparse softmax -> SpMM on ``[b*heads, s, head_dim]``.
 
         Runs entirely in the panel layout: the sampled scores never leave
-        the MXU block panel between the three ops (the reference's chain
+        the block panel between the three ops (the reference's chain
         round-trips flat CSR values through three kernels,
         ``modules/sparse_attention.py:65-94``)."""
         spec = P.PanelSpec(self.score_topology)
@@ -86,7 +84,7 @@ class SparseAttention(nn.Module):
 
         return jax.vmap(one)(q3d, k3d, v3d)
 
-    def __call__(self, x):
+    def forward(self, scope, x):
         """x: ``[batch, seq, embed]`` -> ``[batch, seq, embed]``."""
         b, s, _ = x.shape
         t = self.score_topology
@@ -101,11 +99,12 @@ class SparseAttention(nn.Module):
             y = jnp.transpose(y, (0, 2, 1, 3))
             return y.reshape(b * self.num_heads, s, self.head_dim)
 
-        q = split_heads(self.q_proj(x))
-        k = split_heads(self.k_proj(x))
-        v = split_heads(self.v_proj(x))
+        q_proj, k_proj, v_proj, out_proj = self._projections()
+        q = split_heads(q_proj(scope.child("q_proj"), x))
+        k = split_heads(k_proj(scope.child("k_proj"), x))
+        v = split_heads(v_proj(scope.child("v_proj"), x))
 
         ctx = self.attention(q, k, v)  # [b*h, s, hd]
         ctx = ctx.reshape(b, self.num_heads, s, self.head_dim)
         ctx = jnp.transpose(ctx, (0, 2, 1, 3)).reshape(b, s, self.embed_dim)
-        return self.out_proj(ctx)
+        return out_proj(scope.child("out_proj"), ctx)

@@ -4,12 +4,12 @@ Capability parity with the reference's ``SparseLinear``
 (``modules/sparse_linear.py:69-89``): the weight is ``W_sp [out, in]`` in CSR
 form, the trainable parameter is the nonzero values, and the layer computes
 ``y = (W_sp @ x^T)^T + b`` through the shared-sparse ``left_spmm`` path.
-Differences, TPU-first:
+Differences:
 
   * The sparsity pattern is a static ``SparseTopology`` fixed at module
     construction (the reference re-derives CSR from a dense param via
     ``setup_sparse_tensors``; here topology is structure, values are state).
-  * The trainable values live in the MXU block-panel layout by default
+  * The trainable values live in the block-panel layout by default
     (``layout="panel"``): the forward is ONE fused SpMM kernel call with all
     batch dims folded into the dense columns — no per-replica launch loop
     (the reference loops kernel launches per batch element,
@@ -24,13 +24,16 @@ Differences, TPU-first:
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+from typing import Any
+
 import jax.numpy as jnp
 import numpy as np
 
 from ..ops import api as ops
 from ..ops import panel_api as P
 from ..topology import SparseTopology
+from .module import Module
 
 __all__ = ["SparseLinear", "sparse_kaiming_values"]
 
@@ -40,7 +43,7 @@ def sparse_kaiming_values(topo: SparseTopology, *, gain: float = 1.0):
 
     Scales by the effective fan-in (mean nonzeros per output row) so sparse
     layers start with the same output variance as their dense counterparts.
-    Returns a flax-style ``init(key, shape, dtype)`` callable.
+    Returns an ``init(key, shape, dtype)`` callable.
     """
     fan_in = max(float(topo.nnz) / max(topo.m, 1), 1.0)
     bound = gain * np.sqrt(3.0 / fan_in)
@@ -55,7 +58,8 @@ def sparse_kaiming_values(topo: SparseTopology, *, gain: float = 1.0):
     return init
 
 
-class SparseLinear(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SparseLinear(Module):
     """``y = act(W_sp @ x^T + b)^T`` with static weight sparsity.
 
     Attributes:
@@ -63,7 +67,7 @@ class SparseLinear(nn.Module):
         features_in]`` (``m = out``, ``n = in``).
       use_bias: add a per-output-feature bias.
       fuse_relu: apply the fused bias+ReLU SpMM epilogue.
-      layout: ``"panel"`` (TPU-canonical block panel values) or ``"csr"``
+      layout: ``"panel"`` (canonical block panel values) or ``"csr"``
         (reference-parity flat value vector).
       param_dtype: dtype of the value parameter.
     """
@@ -72,7 +76,7 @@ class SparseLinear(nn.Module):
     use_bias: bool = True
     fuse_relu: bool = False
     layout: str = "panel"
-    param_dtype: jnp.dtype = jnp.float32
+    param_dtype: Any = jnp.float32
 
     @classmethod
     def from_mask(cls, mask: np.ndarray, **kwargs) -> "SparseLinear":
@@ -114,8 +118,7 @@ class SparseLinear(nn.Module):
         out[t.row_ids[: t.nnz], t.column_indices[: t.nnz]] = vals[: t.nnz]
         return out
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, scope, x):
         t = self.topology
         if x.shape[-1] != t.n:
             raise ValueError(f"input features {x.shape[-1]} != {t.n}")
@@ -123,7 +126,8 @@ class SparseLinear(nn.Module):
             raise ValueError(f"unknown layout {self.layout!r}")
 
         bias = (
-            self.param("bias", nn.initializers.zeros, (t.m,), self.param_dtype)
+            scope.param("bias", lambda k, s, d: jnp.zeros(s, d), (t.m,),
+                        self.param_dtype)
             if self.use_bias
             else None
         )
@@ -133,7 +137,7 @@ class SparseLinear(nn.Module):
 
         if self.layout == "panel":
             spec = self.spec()
-            values = self.param(
+            values = scope.param(
                 "values",
                 P.panel_kaiming_values(t, spec.bm, spec.bk),
                 spec.view.values_shape,
@@ -147,7 +151,7 @@ class SparseLinear(nn.Module):
                 if bias is not None:
                     y = y + bias[:, None]
         else:
-            values = self.param(
+            values = scope.param(
                 "values", sparse_kaiming_values(t), (t.nnz_pad,),
                 self.param_dtype,
             )

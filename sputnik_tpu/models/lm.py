@@ -20,21 +20,23 @@ tensor-parallel serving) comes from the wrapped ``SparseDecoder``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .serving import SparseDecoder, _layernorm
+from .module import Dense, Embed, LayerNorm, Module, layernorm
+from .serving import SparseDecoder
 from .transformer import SparseTransformer
 
 __all__ = ["SparseLM", "LMServer", "sample_logits",
            "apply_repetition_penalty"]
 
 
-class SparseLM(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SparseLM(Module):
     """Sparse-attention language model: ``tokens [b, s] -> logits
     [b, s, vocab]``.
 
@@ -60,17 +62,17 @@ class SparseLM(nn.Module):
                    vocab_size=vocab_size, tie_embeddings=tie_embeddings,
                    final_layernorm=final_layernorm)
 
-    @nn.compact
-    def __call__(self, tokens):
-        embed = nn.Embed(num_embeddings=self.vocab_size,
-                         features=self.core.hidden_size, name="embed")
-        x = embed(tokens)
-        x = self.core(x)
+    def forward(self, scope, tokens):
+        embed = Embed(num_embeddings=self.vocab_size,
+                      features=self.core.hidden_size)
+        x = embed(scope.child("embed"), tokens)
+        x = self.core(scope.child("core"), x)
         if self.final_layernorm:
-            x = nn.LayerNorm(epsilon=1e-6, name="ln_f")(x)
+            x = LayerNorm(epsilon=1e-6)(scope.child("ln_f"), x)
         if self.tie_embeddings:
-            return embed.attend(x)
-        return nn.Dense(self.vocab_size, use_bias=False, name="lm_head")(x)
+            return embed.attend(scope.child("embed"), x)
+        return Dense(self.vocab_size, use_bias=False)(
+            scope.child("lm_head"), x)
 
 
 def apply_repetition_penalty(logits, present, penalty: float):
@@ -171,7 +173,7 @@ class LMServer:
     def _head(self, p, x):
         """final LayerNorm + LM head on activations ``x [b, s, h]``."""
         if self.lm.final_layernorm:
-            x = _layernorm(p["ln_f"], x)
+            x = layernorm(p["ln_f"], x)
         if self.lm.tie_embeddings:
             emb = p["embed"]["embedding"]
             return x @ emb.T.astype(x.dtype)

@@ -7,10 +7,10 @@ semantics of the reference's batched SpMM (``src/spmm_cuda.cu:29-30``:
 ``values [r, nnz] x dense [r, k, n]``), so the whole expert bank computes
 as ONE batched sparse op per projection.
 
-TPU-first design choices:
+Design choices:
   * dense one-hot dispatch/combine (einsum onto a ``[tokens, E, capacity]``
-    tensor) — MXU-friendly, static shapes, no gathers (TPU element gathers
-    are catastrophic) — the Mesh-TensorFlow/GShard MoE formulation;
+    tensor) — matmul-shaped, static shapes, no gathers — the
+    Mesh-TensorFlow/GShard MoE formulation;
   * expert parallelism via ``shard_map`` over an ``ep`` mesh axis: each
     device holds ``E/ndev`` experts' values and computes their batched
     sparse FFN locally; the only collective is one ``psum`` of the
@@ -21,9 +21,9 @@ TPU-first design choices:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,40 +32,14 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..ops import batched_panel as bp
 from ..ops import panel_api as PA
 from ..topology import SparseTopology
+from .module import Dense, Module
 
 __all__ = ["SparseMoE"]
 
 
-def _bank_tiles(topo: SparseTopology, n_rep: int = 0):
-    """Measured on v5e (RESULTS.md r4 MoE): at [4096, 1024] d=0.25 the
-    expert bank runs 10x faster on (1024, 1024) tiles than the 128^2
-    default (the batched kernel is grid-step-overhead-bound at fat
-    shapes); small dims keep 128 for block granularity.
-
-    On TPU a cached on-chip sweep result (``utils.autotune.
-    best_bank_tiles``) overrides the hand table automatically when one
-    exists for this shape class — sweeps stay opt-in, applying them is
-    free."""
-    if n_rep:
-        try:
-            from ..ops._common import on_tpu
-            from ..utils import autotune
-
-            if on_tpu():
-                import jax.numpy as jnp
-
-                hit = autotune.cached_best(
-                    "bank", autotune.bank_key(topo, n_rep, jnp.float32),
-                    autotune.BANK_TILE_CANDIDATES)
-                if hit is not None:
-                    return hit
-        except Exception:  # pragma: no cover - cache is best-effort
-            pass
-
-    def t(d):
-        return 1024 if d >= 1024 else (512 if d >= 512 else 128)
-
-    return t(topo.m), t(topo.n)
+def _bank_tiles(topo: SparseTopology):
+    """Expert-bank block tiles: the panel default (``default_block``)."""
+    return PA.default_block(topo)
 
 
 def _bank_spec(topo: SparseTopology, n_rep: int, bm: int = 0,
@@ -75,7 +49,7 @@ def _bank_spec(topo: SparseTopology, n_rep: int, bm: int = 0,
     shared-topology metadata set, ``n_rep`` value replicas — experts are
     exactly the batched-panel replica axis."""
     if not bm or not bk:
-        bm, bk = _bank_tiles(topo, n_rep)
+        bm, bk = _bank_tiles(topo)
     bv = topo.block(bm, bk)
     cached = getattr(bv, "_moe_specs", None)
     if cached is None:
@@ -88,7 +62,8 @@ def _bank_spec(topo: SparseTopology, n_rep: int, bm: int = 0,
     return cached[key]
 
 
-class SparseMoE(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SparseMoE(Module):
     """Top-1 / top-2 MoE with CSR-sparse expert FFNs.
 
     Attributes:
@@ -119,8 +94,8 @@ class SparseMoE(nn.Module):
     activation: Optional[str] = "gelu"
     mesh: Optional[Mesh] = None
     axis: str = "ep"
-    # (bm, bk) kernel tiles for the expert bank; None -> measured table /
-    # autotune cache (_bank_tiles). Set it to the block granularity of a
+    # (bm, bk) kernel tiles for the expert bank; None -> _bank_tiles.
+    # Set it to the block granularity of a
     # block-structured expert topology so empty tiles are SKIPPED (the
     # whole point of block sparsity: time scales with occupancy).
     bank_tiles: Optional[tuple] = None
@@ -134,8 +109,7 @@ class SparseMoE(nn.Module):
             return y
         raise ValueError(f"unknown activation {self.activation}")
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, scope, x):
         """``x [..., hidden] -> [..., hidden]``."""
         h = self.topo_in.n
         f = self.topo_in.m
@@ -154,7 +128,7 @@ class SparseMoE(nn.Module):
         C = max(int(np.ceil(T / E * self.top_k * self.capacity_factor)), 1)
 
         # --- router (dense; tiny) ---------------------------------------
-        logits = nn.Dense(E, use_bias=False, name="router")(xf)   # [T, E]
+        logits = Dense(E, use_bias=False)(scope.child("router"), xf)
         probs = jax.nn.softmax(logits, axis=-1)
         # routing math stays int32/f32: a bf16 cumsum is only exact to
         # 256, so with capacity > 256 two tokens would silently share a
@@ -167,7 +141,7 @@ class SparseMoE(nn.Module):
         # E * sum_e(frac_tokens * mean_prob)
         frac = jnp.mean(oh1.astype(probs.dtype), axis=0)
         mean_p = jnp.mean(probs, axis=0)
-        self.sow("intermediates", "aux_loss", E * jnp.sum(frac * mean_p))
+        scope.sow("aux_loss", E * jnp.sum(frac * mean_p))
 
         # position of each token within its expert; one_hot itself zeroes
         # unrouted (-1) and over-capacity (>= C) slots
@@ -194,20 +168,14 @@ class SparseMoE(nn.Module):
                        + disp2 * g2n[:, None, None])
 
         # --- per-expert sparse values (shared topology, PANEL layout) ----
-        # Values live in the MXU block panel, the canonical device layout
-        # — the earlier flat-CSR params paid an in-trace values->panel
-        # scatter on EVERY forward (~8 ms/expert at h=1024/f=4096 on
-        # chip, the catastrophic-gather class; measured in RESULTS.md
-        # r4 MoE section). The expert bank is one batched-panel op per
-        # projection: experts = the replica axis of ``ops/batched_panel``
-        # sharing one topology's metadata.
-        # Resolve the kernel tiles ONCE, with the param-owning expert
-        # count E: the autotune-backed table is n_rep-dependent, so
-        # letting the ep-local path re-decide with n_loc could pick
-        # different tiles than the params were created with (panel-shape
-        # mismatch on TPU with a populated cache)
+        # Values live in the block panel, the canonical device layout (no
+        # per-forward values->panel scatter). The expert bank is one
+        # batched-panel op per projection: experts = the replica axis of
+        # ``ops/batched_panel`` sharing one topology's metadata. The tiles
+        # are resolved ONCE, with the param-owning expert count E, so the
+        # ep-local path reuses the tiles the params were created with.
         def _tiles(topo):
-            return self.bank_tiles or _bank_tiles(topo, E)
+            return self.bank_tiles or _bank_tiles(topo)
 
         bt_in, bt_out = _tiles(self.topo_in), _tiles(self.topo_out)
         spec_in = _bank_spec(self.topo_in, E, *bt_in)
@@ -216,52 +184,25 @@ class SparseMoE(nn.Module):
                                           spec_in.bk)
         init_out = PA.panel_kaiming_values(self.topo_out, spec_out.bm,
                                            spec_out.bk)
-        v_in = self.param("w_in_values",
+        v_in = scope.param("w_in_values",
                           lambda k, s, d=jnp.float32: jax.vmap(
                               lambda kk: init_in(kk, s[1:], d))(
                                   jax.random.split(k, E)),
                           (E,) + spec_in.panel_shape)
-        v_out = self.param("w_out_values",
+        v_out = scope.param("w_out_values",
                            lambda k, s, d=jnp.float32: jax.vmap(
                                lambda kk: init_out(kk, s[1:], d))(
                                    jax.random.split(k, E)),
                            (E,) + spec_out.panel_shape)
-
-        # bf16 operand streaming on real TPUs: halves the bank's HBM
-        # traffic and is numerically identical to the default-precision
-        # f32 matmul (the MXU truncates f32 operands to bf16 passes
-        # anyway — the same established result as the headline spmm)
-        from ..ops import _common as _c
-
-        stream = (jnp.bfloat16
-                  if _c.on_tpu() and h >= 512 and f >= 512 else None)
 
         def expert_bank(disp, comb, p1, p2, xflat, n_exp):
             """[T,E',C] dispatch over E' (possibly local) experts —
             the tiles stay the E-resolved ones above."""
             s1 = _bank_spec(self.topo_in, n_exp, *bt_in)
             s2 = _bank_spec(self.topo_out, n_exp, *bt_out)
-            if stream is not None:
-                # the dispatch one-hot is EXACT in bf16 (0/1 entries);
-                # streaming it + x halves the dispatch matmul's traffic
-                # and doubles its MXU rate, f32 accumulate as everywhere
-                disp_s = disp.astype(stream)
-                xin = jnp.einsum("tec,th->ehc", disp_s,
-                                 xflat.astype(stream),
-                                 preferred_element_type=jnp.float32)
-                p1, p2 = p1.astype(stream), p2.astype(stream)
-                xin = xin.astype(stream)
-            else:
-                xin = jnp.einsum("tec,th->ehc", disp, xflat)
+            xin = jnp.einsum("tec,th->ehc", disp, xflat)
             y1 = bp.spmm_bh(s1, p1, xin)                   # [E', f, C]
-            a1 = self._act(y1)
-            if stream is not None:
-                a1 = a1.astype(stream)
-            y2 = bp.spmm_bh(s2, p2, a1)                    # [E', h, C]
-            if stream is not None:
-                return jnp.einsum("tec,ehc->th", comb.astype(stream),
-                                  y2.astype(stream),
-                                  preferred_element_type=jnp.float32)
+            y2 = bp.spmm_bh(s2, p2, self._act(y1))         # [E', h, C]
             return jnp.einsum("tec,ehc->th", comb,
                               y2.astype(xflat.dtype))      # [T, h]
 

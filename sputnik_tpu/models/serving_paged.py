@@ -6,7 +6,7 @@ tables, bf16/int8 KV) but stores KV in per-layer page pools
 (``ops/paged.py``) instead of per-slot contiguous buffers: HBM waste for
 a ragged batch drops from ``sum(s_max - len)`` tokens to under one page
 per (slot, kv-head, layer), and slots admit/evict without copying cache
-data — the vLLM memory model, TPU-native.
+data — the vLLM memory model.
 
 Scheduling contract (the standard split): ``reserve(caches, n)`` is a
 HOST step that allocates pages for the next ``n`` tokens (call it between
@@ -142,8 +142,7 @@ class PagedDecoder(SparseDecoder):
         # identical across layers by construction (regression-tested:
         # test_paged.test_layer_page_tables_identical). Hoisting the
         # gather + masks out of the layer loop removes 3 * num_layers
-        # XLA ops per decoded token — attribution of the r4 in-scan
-        # paged premium (RESULTS.md).
+        # XLA ops per decoded token.
         c0 = caches[0]
         phys = jnp.take_along_axis(
             c0.page_table, jnp.clip(logical, 0, c0.max_blocks - 1),

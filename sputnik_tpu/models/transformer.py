@@ -18,21 +18,23 @@ Fixes over the reference:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from .. import many_mask as mm
 from ..ops import batched_panel as bp
+from .module import Dense, LayerNorm, Module, remat_call
 
-# sequence-length crossover for layout="auto": below it the per-kernel
-# fixed cost (custom-call boundaries at µs-scale grids) exceeds the FLOPs
-# sparsity sheds and the dense-masked XLA graph wins; above it the fused
-# flash kernel wins (driver bisect + long-sequence tables, RESULTS.md)
-_XLA_FLASH_CROSSOVER = 1024
+# sequence-length crossover for layout="auto": below it the dense-masked
+# XLA graph is taken, above it the fused flash kernel. Measured on an H100
+# (PERF.md): causal b=4 h=8 hd=128 forward + backward, dense-masked XLA is
+# faster at every s in {512, 1024, 2048, 4096}; the crossover above 4096
+# is not measured yet.
+_XLA_FLASH_CROSSOVER = 8192
 
 __all__ = [
     "SparseCoreAttention",
@@ -60,25 +62,25 @@ def split_tensor_along_last_dim(tensor, num_partitions: int):
     return jnp.split(tensor, num_partitions, axis=-1)
 
 
-def flash_tiles(s: int, flash_block: int = 1024, flash_block_k: int = 0):
-    """Measured fused-flash tile defaults for sequence length ``s``.
+def flash_tiles(s: int, hd: int = 128, flash_block: int = 0,
+                flash_block_k: int = 0):
+    """Fused-flash tile ``(bm, bk)`` for sequence length ``s`` and head
+    width ``hd``.
 
-    ``bm`` capped at ``flash_block``; ``bk`` defaults to 2x ``bm`` below
-    1024 (the r2 ~25% wider-key-tile win at bm=512) and to ``bm`` at
-    1024 (square (1024,1024) beat (512,1024) in two independent r3
-    sessions — fwd 0.23-0.34 vs 0.36-0.38 ms and grad 1.12-1.37 vs
-    1.20-1.49 on causal 16x2048, dense-anchored; (1024,2048) is worse).
-    Both floored at the 128-lane minimum and never exceeding the padded
-    sequence. Single source of truth for training
+    One Triton program owns ``bm`` query rows and walks ``bk``-wide key
+    blocks. At ``hd = 128``, 64 x 64 is the largest square tile whose
+    backward kernels fit a block's 227 KB of shared memory at every matmul
+    precision (128 x 64 is faster at the default precision but overflows
+    at ``highest``; sweep on an H100, PERF.md); wider heads halve it.
+    Neither exceeds the padded sequence nor drops below 16 (the tensor
+    cores' minimum). Single source of truth for training
     (``SparseCoreAttention``) and serving
     (``SparseDecoder._prefill_spec``)."""
     s_pow2 = 1 << (s - 1).bit_length()
-    bm = max(128, min(flash_block, s_pow2))
-    if flash_block_k:
-        bk = flash_block_k
-    else:
-        bk = bm if bm >= 1024 else min(2 * bm, s_pow2)
-    return bm, max(128, bk)
+    base = 32 if hd > 128 else 64
+    bm = flash_block or base
+    bk = flash_block_k or base
+    return (max(16, min(bm, s_pow2)), max(16, min(bk, s_pow2)))
 
 
 def dense_masks_for(mt: mm.ManyMaskTopology):
@@ -121,27 +123,27 @@ def cached_batched_spec(mt: mm.ManyMaskTopology, heads: int, bm: int,
     return cached[key]
 
 
-class SparseCoreAttention(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SparseCoreAttention(Module):
     """SDDMM -> ragged CSR softmax -> SpMM with per-batch masks.
 
-    ``layout="panel"`` (default) runs the chain through the batched panel
-    kernels (``ops/batched_panel.py``): one kernel launch for all ``b*h``
-    replicas, heads sharing their batch element's block metadata, scores
-    never leaving the MXU panel between the three ops. ``layout="flash"``
-    fuses the whole chain into one kernel with online softmax (scores never
-    reach HBM — fastest forward; backward recomputes through the panel
-    chain). ``layout="csr"`` keeps the flat many-mask oracle path
-    (reference-parity semantics, ``tests/transformer/functions.py``)."""
+    ``layout="flash"`` (default) fuses the whole chain into one kernel
+    with online softmax (scores never reach device memory) and a
+    two-kernel backward. ``layout="panel"`` runs the chain through the
+    batched panel ops (``ops/batched_panel.py``): one launch for all
+    ``b*h`` replicas, heads sharing their batch element's block metadata.
+    ``layout="csr"`` keeps the flat many-mask path (reference-parity
+    semantics, ``tests/transformer/functions.py``); ``layout="xla"`` is
+    dense masked attention; ``layout="auto"`` picks ``xla`` below
+    ``_XLA_FLASH_CROSSOVER`` and ``flash`` above."""
 
     mask_topology: mm.ManyMaskTopology
     num_heads: int
     layout: str = "flash"
-    flash_block: int = 1024
-    flash_block_k: int = 0      # 0 -> auto (see flash_tiles docstring)
-    # "bf16": stream q/k/v to the flash kernel as bf16 on real TPUs
-    # (~15% measured at s=8192; fwd numerically identical — the MXU
-    # truncates f32 operands to bf16 passes anyway — but backward
-    # COTANGENTS are then bf16 too, the standard mixed-precision
+    flash_block: int = 0        # 0 -> flash_tiles' default
+    flash_block_k: int = 0      # 0 -> flash_tiles' default
+    # "bf16": stream q/k/v to the flash kernel as bf16 (f32 accumulate;
+    # backward COTANGENTS are then bf16 too, the standard mixed-precision
     # training trade). Opt-in; None keeps the operands' dtype.
     flash_stream: Optional[str] = None
 
@@ -152,27 +154,21 @@ class SparseCoreAttention(nn.Module):
     def _dense_masks(self):
         return dense_masks_for(self.mask_topology)
 
-    def __call__(self, q, k, v):
+    def forward(self, scope, q, k, v):
         """q: ``[b, s, heads, head_dim]``; k, v: same, or with fewer
         (grouped-query) KV heads dividing ``heads`` -> ``[b, s, h]``."""
+        del scope
         mt = self.mask_topology
         b, s, h, hd = q.shape
         if b != mt.b:
             raise ValueError(f"batch {b} != mask batch {mt.b}")
         if s != mt.m:
             raise ValueError(f"seq {s} != mask rows {mt.m}")
-        # Sub-128 tiles violate the TPU 128-lane minor-dim requirement (they
-        # only work in interpret mode) — short sequences take the panel path.
         layout = self.layout
         if layout == "auto":
-            # shape-dispatched execution: below the crossover the per-
-            # kernel fixed cost (custom-call boundaries at µs-scale
-            # grids) exceeds the FLOPs sparsity sheds, and a fully-
-            # fusable dense-masked XLA graph wins (driver bisect,
-            # RESULTS.md r5); at long sequences the flash kernel wins
-            # outright (8.4x dense at s=32k).
             layout = "xla" if s < _XLA_FLASH_CROSSOVER else "flash"
-        if layout == "flash" and s < 128:
+        if layout == "flash" and s < 16:
+            # below the tensor cores' 16-row minimum tile
             layout = "panel"
         if layout == "xla":
             kv = k.shape[2]
@@ -211,42 +207,19 @@ class SparseCoreAttention(nn.Module):
         q3, k3, v3 = fold(q), fold(k), fold(v)
         scale = 1.0 / float(np.sqrt(hd))
         if layout == "flash":
-            from ..ops._common import on_tpu
             from ..ops.fused_attention import (fused_sparse_attention,
                                                warm_flash_meta)
 
-            if self.flash_stream == "bf16" and on_tpu():
+            if self.flash_stream == "bf16":
                 q3 = q3.astype(jnp.bfloat16)
                 k3 = k3.astype(jnp.bfloat16)
                 v3 = v3.astype(jnp.bfloat16)
-
-            blk, blk_k = flash_tiles(s, self.flash_block,
+            blk, blk_k = flash_tiles(s, hd, self.flash_block,
                                      self.flash_block_k)
-            if (self.flash_block == 1024 and not self.flash_block_k
-                    and on_tpu()):
-                # a cached on-chip sweep result overrides the hand
-                # formula automatically (sweeps stay opt-in:
-                # utils.autotune.best_flash_tiles populates the cache)
-                try:
-                    from ..utils import autotune
-
-                    t0 = mt.topologies[0]
-                    hit = autotune.cached_best(
-                        "flash",
-                        autotune.flash_key(
-                            s, h, hd, t0.nnz / max(t0.m * t0.n, 1),
-                            backward=True),
-                        autotune.FLASH_TILE_CANDIDATES)
-                    if hit is not None and max(hit) <= (
-                            1 << (s - 1).bit_length()):
-                        blk, blk_k = hit
-                except Exception:  # pragma: no cover - best-effort
-                    pass
             spec = self._panel_spec(bm=blk, bk=blk_k)
             # device-place the flash metadata on the first eager call so
             # traced steps don't bake it into their compile payload
-            # (hd selects fused-vs-two-kernel backward warming)
-            warm_flash_meta(spec, hd=hd)
+            warm_flash_meta(spec)
             ctx = fused_sparse_attention(spec, q3, k3, v3, scale=scale,
                                          group=group)
         elif layout == "panel":
@@ -258,29 +231,28 @@ class SparseCoreAttention(nn.Module):
             scores = mm.sddmm_many_mask(mt, q3, k3) * scale
             weights = mm.sparse_softmax_many_mask(mt, scores)
             ctx = mm.spmm_many_mask(mt, weights, v3)      # [b*h, s, hd]
-        ctx = ctx.reshape(b, h, s, hd)
+        ctx = ctx.reshape(b, h, s, hd).astype(q.dtype)
         return jnp.transpose(ctx, (0, 2, 1, 3)).reshape(b, s, h * hd)
 
 
-class SparseSelfAttention(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SparseSelfAttention(Module):
     """Fused-QKV self-attention block (``modules.py:83-119``).
 
     ``num_kv_heads`` (default: ``num_heads``) enables grouped-query
     attention: K/V are projected to fewer heads, shrinking the QKV
     parameters and — the real point — the serving KV cache by
     ``num_heads / num_kv_heads`` (``models/serving.SparseDecoder`` stores
-    and attends over only the KV heads; the fused decode kernel groups
-    query heads natively)."""
+    and attends over only the KV heads)."""
 
     mask_topology: mm.ManyMaskTopology
     hidden_size: int
     num_heads: int
     num_kv_heads: Optional[int] = None
     attention_layout: str = "flash"
-    flash_stream: Optional[str] = None   # "bf16" -> stream q/k/v on TPU
+    flash_stream: Optional[str] = None   # "bf16" -> stream q/k/v
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, scope, x):
         b, s, hsz = x.shape
         if hsz != self.hidden_size:
             raise ValueError(f"hidden {hsz} != {self.hidden_size}")
@@ -294,12 +266,13 @@ class SparseSelfAttention(nn.Module):
 
         if kv == self.num_heads:
             # head-interleaved layout, identical to the pre-GQA parameters
-            qkv = nn.Dense(3 * self.hidden_size, name="query_key_value")(x)
+            qkv = Dense(3 * self.hidden_size)(
+                scope.child("query_key_value"), x)
             qkv = qkv.reshape(b, s, self.num_heads, 3 * hd)
             q, k, v = jnp.split(qkv, 3, axis=-1)
         else:
-            qkv = nn.Dense((self.num_heads + 2 * kv) * hd,
-                           name="query_key_value")(x)
+            qkv = Dense((self.num_heads + 2 * kv) * hd)(
+                scope.child("query_key_value"), x)
             q = qkv[..., : self.num_heads * hd]
             q = q.reshape(b, s, self.num_heads, hd)
             k = qkv[..., self.num_heads * hd: (self.num_heads + kv) * hd]
@@ -311,11 +284,12 @@ class SparseSelfAttention(nn.Module):
             mask_topology=self.mask_topology, num_heads=self.num_heads,
             layout=self.attention_layout,
             flash_stream=self.flash_stream,
-        )(q, k, v)
-        return nn.Dense(self.hidden_size, name="dense")(ctx)
+        )(scope, q, k, v)
+        return Dense(self.hidden_size)(scope.child("dense"), ctx)
 
 
-class MLP(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class MLP(Module):
     """Two dense projections (``modules.py:121-145``; the reference has no
     nonlinearity between them — ``activation`` opts one in)."""
 
@@ -323,19 +297,19 @@ class MLP(nn.Module):
     ffn_hidden_size: int
     activation: Optional[str] = None
 
-    @nn.compact
-    def __call__(self, x):
-        y = nn.Dense(self.ffn_hidden_size, name="to_4h")(x)
+    def forward(self, scope, x):
+        y = Dense(self.ffn_hidden_size)(scope.child("to_4h"), x)
         if self.activation == "gelu":
-            y = nn.gelu(y)
+            y = jax.nn.gelu(y)
         elif self.activation == "relu":
-            y = nn.relu(y)
+            y = jax.nn.relu(y)
         elif self.activation is not None:
             raise ValueError(f"unknown activation {self.activation}")
-        return nn.Dense(self.hidden_size, name="to_h")(y)
+        return Dense(self.hidden_size)(scope.child("to_h"), y)
 
 
-class TransformerLayer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class TransformerLayer(Module):
     """Attention -> MLP. The reference stacks them bare (``modules.py:147-161``);
     ``use_residual``/``use_layernorm`` opt into the standard pre-LN block."""
 
@@ -350,15 +324,17 @@ class TransformerLayer(nn.Module):
     attention_layout: str = "flash"
     flash_stream: Optional[str] = None
     # Mixture-of-Experts FFN (Switch/Mixtral-style): when ``moe`` is a
-    # SparseMoE *module instance* (hashable flax dataclass), it replaces
-    # the dense-in/dense-out MLP — sparse expert FFNs behind a router,
-    # optionally expert-parallel over the module's own mesh axis.
-    moe: Optional[nn.Module] = None
+    # SparseMoE instance, it replaces the dense-in/dense-out MLP — sparse
+    # expert FFNs behind a router, optionally expert-parallel over the
+    # module's own mesh axis. Each layer's "mlp" scope holds its own
+    # router + expert values.
+    moe: Optional[Module] = None
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, scope, x):
         def maybe_ln(y, name):
-            return nn.LayerNorm(name=name)(y) if self.use_layernorm else y
+            if not self.use_layernorm:
+                return y
+            return LayerNorm()(scope.child(name), y)
 
         attn_in = maybe_ln(x, "ln_attn")
         attn = SparseSelfAttention(
@@ -368,42 +344,29 @@ class TransformerLayer(nn.Module):
             num_kv_heads=self.num_kv_heads,
             attention_layout=self.attention_layout,
             flash_stream=self.flash_stream,
-            name="self_attention",
-        )(attn_in)
+        )(scope.child("self_attention"), attn_in)
         x = x + attn if self.use_residual else attn
 
         mlp_in = maybe_ln(x, "ln_mlp")
-        if self.moe is not None:
-            # fresh child per layer from the template's config (each MoE
-            # layer gets its OWN router + expert values; flax's shared
-            # -instance adoption would tie them). Construct a NEW
-            # instance inside compact so it binds into this layer.
-            import dataclasses as _dc
-
-            cfg = {f.name: getattr(self.moe, f.name)
-                   for f in _dc.fields(self.moe)
-                   if f.name not in ("parent", "name")}
-            mlp = type(self.moe)(**cfg, name="mlp")(mlp_in)
-        else:
-            mlp = MLP(
-                hidden_size=self.hidden_size,
-                ffn_hidden_size=self.ffn_hidden_size,
-                activation=self.activation,
-                name="mlp",
-            )(mlp_in)
-        return x + mlp if self.use_residual else mlp
+        mlp = self.moe if self.moe is not None else MLP(
+            hidden_size=self.hidden_size,
+            ffn_hidden_size=self.ffn_hidden_size,
+            activation=self.activation,
+        )
+        y = mlp(scope.child("mlp"), mlp_in)
+        return x + y if self.use_residual else y
 
 
-class SparseTransformer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SparseTransformer(Module):
     """N sparse-attention layers (``modules.py:163-183``).
 
-    ``remat=True`` wraps every layer in ``flax.linen.remat``
-    (``jax.checkpoint``): activations are recomputed in the backward
-    pass instead of stored, trading ~one extra forward of FLOPs for
-    O(num_layers) less HBM — the standard TPU recipe for training long
-    sequences, where HBM capacity (not FLOPs) binds first. Parameter
-    structure is unchanged, so checkpoints swap freely between the two
-    modes."""
+    ``remat=True`` runs every layer under ``jax.checkpoint``: activations
+    are recomputed in the backward pass instead of stored, trading ~one
+    extra forward of FLOPs for O(num_layers) less device memory — the
+    standard recipe for training long sequences, where memory capacity
+    (not FLOPs) binds first. Parameter structure is unchanged, so
+    checkpoints swap freely between the two modes."""
 
     mask_topology: mm.ManyMaskTopology
     num_layers: int
@@ -423,7 +386,7 @@ class SparseTransformer(nn.Module):
     # 1 = every layer; 2 = layers 1, 3, 5, ... (the Switch default).
     # Training-side feature: the serving decoders expect dense-MLP
     # layer params and reject MoE models.
-    moe: Optional[nn.Module] = None
+    moe: Optional[Module] = None
     moe_every: int = 0
 
     @classmethod
@@ -431,28 +394,23 @@ class SparseTransformer(nn.Module):
         """Build with per-batch dense 0/1 masks ``[b, s, s]`` (converted to
         CSR once, here — not per step)."""
         mt = mm.ManyMaskTopology.from_dense_masks(masks)
-        if (masks.shape[1] < _XLA_FLASH_CROSSOVER
-                and kwargs.get("attention_layout", "flash")
-                in ("auto", "xla")):
+        if kwargs.get("attention_layout", "flash") in ("auto", "xla"):
             # device-place the dense masks EAGERLY: a jit-only caller
             # would otherwise bake a [b, s, s] constant into every
-            # compiled program (the remote-compile payload class)
+            # compiled program
             from ..ops._common import trace_clean
 
             if trace_clean():
                 dense_masks_for(mt)
         return cls(mask_topology=mt, **kwargs)
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, scope, x):
         if self.moe_every and self.moe is None:
             raise ValueError("moe_every set but no moe module given")
-        layer_cls = nn.remat(TransformerLayer) if self.remat \
-            else TransformerLayer
         for i in range(self.num_layers):
             is_moe = bool(self.moe_every) and (i % self.moe_every
                                                == self.moe_every - 1)
-            x = layer_cls(
+            layer = TransformerLayer(
                 mask_topology=self.mask_topology,
                 hidden_size=self.hidden_size,
                 num_heads=self.num_heads,
@@ -464,6 +422,7 @@ class SparseTransformer(nn.Module):
                 attention_layout=self.attention_layout,
                 flash_stream=self.flash_stream,
                 moe=self.moe if is_moe else None,
-                name=f"layer_{i}",
-            )(x)
+            )
+            sub = scope.child(f"layer_{i}")
+            x = remat_call(layer, sub, x) if self.remat else layer(sub, x)
         return x

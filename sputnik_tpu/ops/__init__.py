@@ -1,6 +1,5 @@
 from . import decode
 from . import paged
-from . import int8_api as int8
 from . import panel_api as panel
 from .api import (
     csr_transpose,
@@ -17,7 +16,6 @@ from .api import (
 __all__ = [
     "csr_transpose",
     "decode",
-    "int8",
     "get_backend",
     "left_spmm",
     "panel",

@@ -1,32 +1,50 @@
-"""Shared backend predicates and padding helpers for the op layers.
+"""Shared route selection and padding helpers for the op layers.
 
-Single source of truth for backend selection (``set_backend`` /
-on-TPU detection) and tile-padding arithmetic — previously re-implemented
-per module, which let the sharded layer's padding logic diverge (the
-bn-divisor bug fixed in b47db48).
+Single source of truth for which implementation serves an op:
+
+  * ``"kernel"``    — the hand-written Pallas-Triton kernel, compiled for
+    the GPU;
+  * ``"interpret"`` — the same kernel through the Pallas interpreter. Only
+    the test-only :func:`interpret_kernels` switch selects it; no
+    library path chooses the interpreter on its own;
+  * ``"plain"``     — the plain ``jax.numpy`` version that XLA compiles.
+
+``sputnik_tpu.set_backend`` steers the choice: ``"xla"`` forces the plain
+version everywhere, ``"pallas"`` forces the kernels (and needs a GPU),
+``"auto"`` takes the kernel on a GPU and the plain version elsewhere.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import jax
 
-__all__ = ["round_up", "on_tpu", "use_kernels", "interp", "tile_n",
-           "trace_clean", "device_arrays"]
+__all__ = ["round_up", "on_gpu", "route", "interpret_kernels", "tile_n",
+           "trace_clean", "device_arrays", "acc_dtype"]
+
+_state = threading.local()
 
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def acc_dtype(*xs):
+    """Accumulation dtype of the plain versions: float32, or wider when
+    an operand is (float64 gradient checks stay float64)."""
+    import jax.numpy as jnp
+
+    return jnp.promote_types(jnp.result_type(*xs), jnp.float32)
+
+
 def trace_clean() -> bool:
     """True when not inside any JAX trace (safe to create + cache
     device arrays)."""
-    try:
-        from jax._src import core as _core
+    from jax._src import core as _core
 
-        return bool(_core.trace_state_clean())
-    except Exception:
-        return False
+    return bool(_core.trace_state_clean())
 
 
 def device_arrays(obj, attr: str, build) -> dict:
@@ -35,10 +53,9 @@ def device_arrays(obj, attr: str, build) -> dict:
     ``build()`` returns the numpy dict (called only on a cache miss;
     non-ndarray entries are dropped). Device-resident metadata enters a
     surrounding ``jit`` as hoisted runtime buffers, not HLO literals —
-    keeping compile payloads O(1) in topology size (the HTTP-413 /
-    slow-compile gotcha; see ``fused_attention._flash_meta``). The
-    cache is only populated outside a trace; tracing first still
-    works, just without caching.
+    keeping compile payloads O(1) in topology size. The cache is only
+    populated outside a trace; tracing first still works, just without
+    caching.
     """
     import numpy as _np
 
@@ -54,51 +71,43 @@ def device_arrays(obj, attr: str, build) -> dict:
     return dev
 
 
-def on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
+def on_gpu() -> bool:
+    return jax.default_backend() == "gpu"
 
 
-def use_kernels() -> bool:
-    """Whether the Pallas kernels should serve this call (honours
-    ``sputnik_tpu.set_backend``; 'auto' means kernels on real TPU only)."""
+@contextlib.contextmanager
+def interpret_kernels():
+    """Test-only switch: every kernel-backed op runs its Pallas kernel
+    through the interpreter (CPU), whatever the backend setting says —
+    except ``set_backend("xla")``, which still forces the plain version."""
+    prev = getattr(_state, "interpret", False)
+    _state.interpret = True
+    try:
+        yield
+    finally:
+        _state.interpret = prev
+
+
+def route() -> str:
+    """``"kernel"``, ``"interpret"`` or ``"plain"`` for the current call."""
     from . import api as _api
 
     backend = _api.get_backend()
     if backend == "xla":
-        return False
-    if backend == "pallas":
-        return True
-    return on_tpu()
+        return "plain"
+    if getattr(_state, "interpret", False):
+        return "interpret"
+    if backend == "pallas" or on_gpu():
+        if not on_gpu():
+            raise ValueError("set_backend('pallas') needs a GPU")
+        return "kernel"
+    return "plain"
 
 
-def interp() -> bool:
-    """Run kernels in interpret mode (anywhere that isn't a real TPU)."""
-    return not on_tpu()
-
-
-def tile_n(q_pad: int, cap: int = 512) -> int:
-    """Largest output-tile width <= cap that exactly divides ``q_pad``
-    (a multiple of 128). A non-divisor would leave trailing column tiles
-    unvisited — the Pallas grid is ``q_pad // bn``."""
-    for bn in (cap, 256, 128):
-        if bn <= cap and q_pad % bn == 0:
-            return bn
-    return 128
-
-
-def vmem_request(*block_elems: int, itemsize: int = 4) -> int:
-    """Scoped-VMEM request sized to the kernel's working set
-    (double-buffered blocks + headroom), clamped to [32, 100] MB.
-
-    Measured r5 (driver-shape panel chain, interleaved A/B): a blanket
-    100 MB request is 1.8x SLOWER than a sized one on small-tile grids —
-    Mosaic trades pipelining for the reservation. The 16 MB default is
-    not an option either: it rejects the big-tile kernels on hardware
-    only (the r4 MoE OOM class). Pass the per-block ELEMENT counts of
-    the kernel's inputs, outputs, and scratches.
-    """
-    # 2.5x covers double buffering plus Mosaic's own stack/spill slop —
-    # 2.0x measured 3 MB short on the fused backward's (1024,1024)
-    # tiles on hardware (scoped-vmem OOM at 35.05 vs a 32 MB request)
-    mb_ = int(2.5 * itemsize * sum(block_elems)) // (1024 * 1024) + 12
-    return max(32, min(100, mb_)) * 1024 * 1024
+def tile_n(q_pad: int, cap: int = 128) -> int:
+    """Largest power-of-two output-tile width <= cap that exactly divides
+    ``q_pad`` (itself a multiple of 16)."""
+    bn = cap
+    while bn > 16 and q_pad % bn:
+        bn //= 2
+    return bn

@@ -1,6 +1,6 @@
 """Differentiable public op set.
 
-This layer is the TPU-native replacement for the reference's two bottom
+This layer replaces the reference's two bottom
 layers at once: the pybind11 bindings (``src/sputnik.cpp:36-42``) and the
 hand-written ``torch.autograd.Function`` wrappers (``modules/spmm.py:8-74``,
 ``modules/sddmm.py:9-75``). Each op is a ``jax.custom_vjp`` whose backward
@@ -9,7 +9,7 @@ hand-written ``torch.autograd.Function`` wrappers (``modules/spmm.py:8-74``,
   * SpMM   backward = SDDMM (sparse grad) + transposed SpMM (dense grad)
   * SDDMM  backward = SpMM + transposed SpMM
   * softmax backward = the correct row-wise VJP (the reference's demo version
-    is mathematically wrong — see ``xla_ops.softmax_vjp``)
+    is mathematically wrong — see ``panel_api.sparse_softmax``)
   * CSR transpose is a precomputed value permutation (plain differentiable
     gather), not a cuSPARSE call per backward.
 
@@ -25,9 +25,11 @@ Batched ("replicated") semantics mirror the reference bindings:
     unmapped values axis, which also gives the *correct* summed values-grad
     the reference never implemented.
 
-Backend dispatch: ``set_backend("xla" | "pallas" | "auto")``. The XLA path
-is the oracle; Pallas block-CSR kernels (``ops/pallas``) take over on TPU for
-supported shapes.
+Every flat op runs through the block-panel ops (``ops/pallas/dispatch``),
+whose route ``set_backend("xla" | "pallas" | "auto")`` steers: ``"xla"``
+forces the plain versions XLA compiles, ``"pallas"`` forces the
+Pallas-Triton kernels (GPU only), ``"auto"`` takes the kernels on a GPU
+and the plain versions elsewhere (``ops/_common.route``).
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-from . import xla_ops
 
 __all__ = [
     "spmm",
@@ -57,72 +58,41 @@ _state = threading.local()
 
 
 def set_backend(name: str) -> None:
-    assert name in ("auto", "xla", "pallas"), name
-    _state.backend = name
-    try:  # release the flat-dispatch caches (pinned HBM) on a switch
-        from .pallas import dispatch as _dispatch
+    """``"auto"`` (kernels on a GPU, plain versions elsewhere), ``"xla"``
+    (plain versions everywhere) or ``"pallas"`` (kernels; needs a GPU)."""
+    if name not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown backend {name!r}")
+    if name == "pallas":
+        from ._common import on_gpu
 
-        _dispatch.flush_caches()
-    except ImportError:  # pragma: no cover
-        pass
+        if not on_gpu():
+            raise ValueError("set_backend('pallas') needs a GPU")
+    _state.backend = name
+    # cached eager closures have their route baked in
+    from .pallas import dispatch as _dispatch
+
+    _dispatch.flush_caches()
 
 
 def get_backend() -> str:
     return getattr(_state, "backend", "auto")
 
 
-def _use_pallas(topo) -> bool:
-    backend = get_backend()
-    if backend == "xla":
-        return False
-    if backend == "pallas":
-        return True  # forced (off-TPU this runs the kernels interpreted)
-    from . import pallas as _pl  # deferred import
-
-    return _pl.supported(topo)
-
-
 # ---------------------------------------------------------------------------
-# Topology constants. These must be HOST (numpy) arrays: converting to jnp
-# here and caching would capture trace-local constants and leak tracers
-# across jit traces. numpy constants are embedded per-trace by XLA instead.
-# ---------------------------------------------------------------------------
-
-
-def _consts(topo):
-    return topo.column_indices, topo.row_ids, topo.valid
-
-
-# ---------------------------------------------------------------------------
-# Core 2-D impls with backend dispatch.
+# Core 2-D impls: the panel ops behind the flat surface.
 # ---------------------------------------------------------------------------
 
 
 def _spmm_impl(topo, values, dense):
-    if _use_pallas(topo):
-        from . import pallas as _pl
+    from .pallas import dispatch
 
-        return _pl.spmm(topo, values, dense)
-    col_ids, row_ids, _ = _consts(topo)
-    return xla_ops.spmm(values, col_ids, row_ids, topo.m, dense)
+    return dispatch.spmm(topo, values, dense)
 
 
 def _sddmm_impl(topo, lhs, rhs):
-    if _use_pallas(topo):
-        from . import pallas as _pl
+    from .pallas import dispatch
 
-        return _pl.sddmm(topo, lhs, rhs)
-    col_ids, row_ids, valid = _consts(topo)
-    return xla_ops.sddmm(lhs, rhs, row_ids, col_ids, valid)
-
-
-def _softmax_impl(topo, values):
-    if _use_pallas(topo):
-        from . import pallas as _pl
-
-        return _pl.sparse_softmax(topo, values)
-    _, row_ids, valid = _consts(topo)
-    return xla_ops.sparse_softmax(values, row_ids, valid, topo.m)
+    return dispatch.sddmm(topo, lhs, rhs)
 
 
 def _transpose_values(topo, values):
@@ -179,34 +149,16 @@ def _sddmm_bwd(topo, res, g):
 _sddmm.defvjp(_sddmm_fwd, _sddmm_bwd)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
 def _sparse_softmax(topo, values):
-    return _softmax_impl(topo, values)
+    from .pallas import dispatch
 
-
-def _sparse_softmax_fwd(topo, values):
-    p = _softmax_impl(topo, values)
-    # dtype token: the cotangent must match the PRIMAL values dtype,
-    # which the softmax may have promoted away from
-    return p, (p, jnp.zeros((0,), values.dtype))
-
-
-def _sparse_softmax_bwd(topo, res, g):
-    p, tok = res
-    _, row_ids, _ = _consts(topo)
-    return (xla_ops.softmax_vjp(p, g, row_ids, topo.m).astype(tok.dtype),)
-
-
-_sparse_softmax.defvjp(_sparse_softmax_fwd, _sparse_softmax_bwd)
+    return dispatch.sparse_softmax(topo, values)
 
 
 def _spmm_bias_relu_impl(topo, values, dense, bias):
-    if _use_pallas(topo):
-        from . import pallas as _pl
+    from .pallas import dispatch
 
-        return _pl.spmm_bias_relu(topo, values, dense, bias, relu=True)
-    pre = _spmm_impl(topo, values, dense) + bias[:, None]
-    return jnp.maximum(pre, 0.0)
+    return dispatch.spmm_bias_relu(topo, values, dense, bias, relu=True)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
@@ -263,7 +215,7 @@ def left_spmm(topo, values, dense):
     dense[r,k,n] -> [r,m,n]`` (``src/left_replicated_spmm.cu:8-44``).
 
     Because the sparse operand is shared, the replica axis folds into the
-    dense *columns* — one big MXU-friendly SpMM instead of the reference's
+    dense *columns* — one big SpMM instead of the reference's
     per-replica kernel-launch loop (``:32-40``)."""
     _check_dense(topo, dense)
     if values.ndim != 1:

@@ -1,17 +1,15 @@
-"""Batched panel ops — the many-mask family on the MXU block panel.
+"""Batched panel ops — the many-mask family on the block panel.
 
 The reference's transformer calls phantom ``*_many_mask`` CUDA bindings:
 per-batch-element masks, heads sharing their batch element's mask
-(``tests/transformer/utils.py:17-38``). Here that family runs as real
-batched Pallas kernels: one kernel launch for ALL replicas, with a batch
-grid dimension whose index maps divide the replica id by ``heads`` to pick
-the right mask's scalar-prefetched block metadata — so the ``h`` heads of a
-batch element share its topology without duplicating it, and the whole
-SDDMM -> softmax -> SpMM chain stays in panel layout.
-
-Off-TPU the same ops run through the vmapped XLA oracle (``many_mask``)
-with panel <-> flat conversion at the boundary, so one test suite covers
-both paths.
+(``tests/transformer/utils.py:17-38``). Here that family runs through the
+batched block-CSR kernel family (``pallas/bsr_spmm``, ``bsr_spmm_t``,
+``bsr_sddmm``): one launch for ALL replicas, each program dividing its
+replica id by ``heads`` to pick its mask's block metadata — so the ``h``
+heads of a batch element share its topology without duplicating it, and
+the whole SDDMM -> softmax -> SpMM chain stays in panel layout. Where the
+kernels do not serve, the same entries run their plain block-gather
+versions.
 """
 
 from __future__ import annotations
@@ -22,24 +20,17 @@ from typing import List
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..blocking import stack_block_meta
-from . import xla_ops
 from ._common import device_arrays as _device_arrays
-from ._common import interp as _interp
 from ._common import round_up as _round_up
-from ._common import use_kernels as _use_kernels
+from .pallas import bsr_sddmm as _sddmm_mod
+from .pallas import bsr_spmm as _spmm_mod
+from .pallas import bsr_spmm_t as _spmm_t_mod
 
 __all__ = ["BatchedPanelSpec", "spmm_bh", "sddmm_bh", "sparse_softmax_bh"]
 
 _NEG_LARGE = -1e30
-
-# Scoped-VMEM request for the batched kernels: size to the working set
-# (r5 — a blanket 100 MB request measured 1.8x slower on small-tile
-# grids). One sizing formula for the whole codebase: _common.
-from ._common import vmem_request as _vmem_for
 
 
 class BatchedPanelSpec:
@@ -112,184 +103,7 @@ class BatchedPanelSpec:
 
 
 # ---------------------------------------------------------------------------
-# Batched Pallas kernels. Grid dim 0 is the replica id r; metadata index maps
-# use r // heads.
-# ---------------------------------------------------------------------------
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "R", "heads", "mb", "max_bpr", "bm", "bk", "bn", "interpret",
-    "vmem"))
-def _k_spmm_bh(cols, nblk, panels, dense, *, R, heads, mb, max_bpr,
-               bm, bk, bn, interpret, vmem=100 * 1024 * 1024):
-    n_pad = dense.shape[-1]
-    nb = n_pad // bn
-
-    def kernel(cols_ref, nblk_ref, p_ref, d_ref, o_ref, acc):
-        r, i, s = pl.program_id(0), pl.program_id(1), pl.program_id(3)
-
-        # VMEM-scratch accumulate, single store at the last slot (the
-        # measured ~6% revisited-out_ref penalty; CLAUDE.md pattern)
-        @pl.when(s == 0)
-        def _():
-            acc[:] = jnp.zeros_like(acc)
-
-        @pl.when(s < nblk_ref[r // heads, i])
-        def _():
-            acc[:] += jax.lax.dot(
-                p_ref[0, 0, 0], d_ref[0],
-                preferred_element_type=jnp.float32)
-
-        @pl.when(s == max_bpr - 1)
-        def _():
-            o_ref[0] = acc[:]
-
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(R, mb, nb, max_bpr),
-            in_specs=[
-                pl.BlockSpec((1, 1, 1, bm, bk),
-                             lambda r, i, j, s, c, nb_: (r, i, s, 0, 0)),
-                pl.BlockSpec(
-                    (1, bk, bn),
-                    lambda r, i, j, s, c, nb_: (
-                        r, c[r // heads, i * max_bpr + s], j)),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, bm, bn), lambda r, i, j, s, c, nb_: (r, i, j)),
-            scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-        ),
-        out_shape=jax.ShapeDtypeStruct((R, mb * bm, n_pad), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel",
-                                 "arbitrary"),
-            vmem_limit_bytes=vmem,
-        ),
-        interpret=interpret,
-    )(cols, nblk, panels, dense)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "R", "heads", "mb", "max_bpr", "bm", "bk", "bd", "interpret",
-    "vmem"))
-def _k_sddmm_bh(cols, nblk, mask, lhs, rhs, *, R, heads, mb, max_bpr,
-                bm, bk, bd, interpret, vmem=100 * 1024 * 1024):
-    d_pad = lhs.shape[-1]
-    dt = d_pad // bd
-
-    def kernel(cols_ref, nblk_ref, m_ref, l_ref, r_ref, o_ref, acc):
-        r, i = pl.program_id(0), pl.program_id(1)
-        s, t = pl.program_id(2), pl.program_id(3)
-
-        @pl.when(t == 0)
-        def _():
-            acc[:] = jnp.zeros_like(acc)
-
-        @pl.when(s < nblk_ref[r // heads, i])
-        def _():
-            acc[:] += jax.lax.dot_general(
-                l_ref[0], r_ref[0],
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-        # single store; padded s slots store 0 * mask (mask is zero
-        # there), keeping every output block defined
-        @pl.when(t == dt - 1)
-        def _():
-            o_ref[0, 0, 0] = acc[:] * m_ref[0, 0, 0]
-
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(R, mb, max_bpr, dt),
-            in_specs=[
-                pl.BlockSpec(
-                    (1, 1, 1, bm, bk),
-                    lambda r, i, s, t, c, nb_: (r // heads, i, s, 0, 0)),
-                pl.BlockSpec((1, bm, bd),
-                             lambda r, i, s, t, c, nb_: (r, i, t)),
-                pl.BlockSpec(
-                    (1, bk, bd),
-                    lambda r, i, s, t, c, nb_: (
-                        r, c[r // heads, i * max_bpr + s], t)),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, 1, 1, bm, bk),
-                lambda r, i, s, t, c, nb_: (r, i, s, 0, 0)),
-            scratch_shapes=[pltpu.VMEM((bm, bk), jnp.float32)],
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            (R, mb, max_bpr, bm, bk), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary",
-                                 "arbitrary"),
-            vmem_limit_bytes=vmem,
-        ),
-        interpret=interpret,
-    )(cols, nblk, mask, lhs, rhs)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "R", "heads", "kb", "max_bpc", "bm", "bk", "bq", "interpret",
-    "vmem"))
-def _k_spmm_t_bh(ti, ts, tn, panels, g, *, R, heads, kb, max_bpc,
-                 bm, bk, bq, interpret, vmem=100 * 1024 * 1024):
-    q_pad = g.shape[-1]
-    qb = q_pad // bq
-
-    def kernel(ti_ref, ts_ref, tn_ref, p_ref, g_ref, o_ref, acc):
-        r, j, u = pl.program_id(0), pl.program_id(1), pl.program_id(3)
-
-        @pl.when(u == 0)
-        def _():
-            acc[:] = jnp.zeros_like(acc)
-
-        @pl.when(u < tn_ref[r // heads, j])
-        def _():
-            acc[:] += jax.lax.dot_general(
-                p_ref[0, 0, 0], g_ref[0],
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-        @pl.when(u == max_bpc - 1)
-        def _():
-            o_ref[0] = acc[:]
-
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(R, kb, qb, max_bpc),
-            in_specs=[
-                pl.BlockSpec(
-                    (1, 1, 1, bm, bk),
-                    lambda r, j, q, u, a, b_, c: (
-                        r, a[r // heads, j * max_bpc + u],
-                        b_[r // heads, j * max_bpc + u], 0, 0)),
-                pl.BlockSpec(
-                    (1, bm, bq),
-                    lambda r, j, q, u, a, b_, c: (
-                        r, a[r // heads, j * max_bpc + u], q)),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, bk, bq), lambda r, j, q, u, a, b_, c: (r, j, q)),
-            scratch_shapes=[pltpu.VMEM((bk, bq), jnp.float32)],
-        ),
-        out_shape=jax.ShapeDtypeStruct((R, kb * bk, q_pad), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel",
-                                 "arbitrary"),
-            vmem_limit_bytes=vmem,
-        ),
-        interpret=interpret,
-    )(ti, ts, tn, panels, g)
-
-
-# ---------------------------------------------------------------------------
-# Impl layer with oracle fallback.
+# Impl layer over the batched kernel family.
 # ---------------------------------------------------------------------------
 
 
@@ -310,133 +124,52 @@ def _mask_r(spec):
 
 
 def _pad_rows(spec, x, rows, d_pad):
+    if x.shape[1:] == (rows, d_pad):
+        return x
     out = jnp.zeros((x.shape[0], rows, d_pad), x.dtype)
     return out.at[:, : x.shape[1], : x.shape[2]].set(x)
+
+
+def _match(a, b):
+    """Promote two operands to a common dtype (accumulation is f32)."""
+    dt = jnp.promote_types(a.dtype, b.dtype)
+    return a.astype(dt), b.astype(dt)
 
 
 def _spmm_impl(spec, panels, dense):
     """panels [R, *] x dense [R, n, q] -> [R, m, q]."""
     q = dense.shape[-1]
-    if _use_kernels():
-        # Output-tile width: every column tile RE-STREAMS the whole
-        # values panel (the j grid dim revisits all of a row's blocks),
-        # so the widest VMEM-fitting divisor of the 128-padded width
-        # minimises weight traffic — the r4 512-cap left the MoE bank
-        # restreaming its panels nb times (see RESULTS.md r5 bank
-        # rows). Tiny widths keep 128.
-        q_pad = _round_up(max(q, 1), 128)
-        bn = 128
-        if q >= 512:
-            budget = 48 * 1024 * 1024
-            cand = q_pad
-            while cand >= 512:
-                ws = ((spec.bm + spec.bk) * cand * 4 * 2
-                      + spec.bm * spec.bk * 4 * 2)
-                if q_pad % cand == 0 and ws <= budget:
-                    break
-                cand -= 128
-            bn = max(cand, 512)
-        q_pad = _round_up(q_pad, bn)
-        dense_p = _pad_rows(spec, dense, spec.n_pad, q_pad)
-        out = _k_spmm_bh(
-            _meta_dev(spec)["block_cols"],
-            _meta_dev(spec)["nblocks"],
-            panels, dense_p,
-            R=spec.R, heads=spec.heads, mb=spec.mb,
-            max_bpr=spec.max_bpr, bm=spec.bm, bk=spec.bk, bn=bn,
-            interpret=_interp(),
-            vmem=_vmem_for(spec.bm * spec.bk, spec.bk * bn,
-                           spec.bm * bn))
-        return out[:, : spec.m, :q]
-    # oracle: per-replica gather/segment formulation
-    nnz_pad = max(t.nnz_pad for t in spec.topologies)
-    vals = spec.unstack_values(panels, nnz_pad)
-    outs = []
-    for r in range(spec.R):
-        t = spec.topologies[r // spec.heads]
-        outs.append(xla_ops.spmm(
-            vals[r, : t.nnz_pad], t.column_indices, t.row_ids, t.m,
-            dense[r]))
-    return jnp.stack(outs)
+    panels, dense = _match(panels, dense)
+    bn = 128 if q > 64 else 16
+    dense_p = _pad_rows(spec, dense, spec.n_pad, _round_up(max(q, 1), bn))
+    meta = _meta_dev(spec)
+    out = _spmm_mod.bsr_spmm_batched(
+        meta["block_cols"], meta["nblocks"], panels, dense_p,
+        heads=spec.heads, bn=bn)
+    return out[:, : spec.m, :q]
 
 
 def _spmm_t_impl(spec, panels, g_r):
-    """A_r^T @ G_r: panels [R, *] x g [R, m_pad, q_pad] -> [R, n, q]."""
+    """A_r^T @ G_r: panels [R, *] x g [R, m, q] -> [R, n, q]."""
     q = g_r.shape[-1]
-    if _use_kernels():
-        # same restream economics as _spmm_impl: every output-column
-        # tile rewalks the panel, so take the widest VMEM-fitting
-        # divisor of the 128-padded width
-        q_pad = _round_up(max(q, 1), 128)
-        bq = 128
-        if q >= 512:
-            budget = 48 * 1024 * 1024
-            cand = q_pad
-            while cand >= 512:
-                ws = ((spec.bm + spec.bk) * cand * 4 * 2
-                      + spec.bm * spec.bk * 4 * 2)
-                if q_pad % cand == 0 and ws <= budget:
-                    break
-                cand -= 128
-            bq = max(cand, 512)
-        q_pad = _round_up(q_pad, bq)
-        g_p = _pad_rows(spec, g_r, spec.m_pad, q_pad)
-        out = _k_spmm_t_bh(
-            _meta_dev(spec)["t_src_i"],
-            _meta_dev(spec)["t_src_s"],
-            _meta_dev(spec)["t_nblocks"],
-            panels, g_p,
-            R=spec.R, heads=spec.heads, kb=spec.kb,
-            max_bpc=spec.max_bpc, bm=spec.bm, bk=spec.bk, bq=bq,
-            interpret=_interp(),
-            vmem=_vmem_for(spec.bm * spec.bk, spec.bm * bq,
-                           spec.bk * bq))
-        return out[:, : spec.n, :q]
-    nnz_pad = max(t.nnz_pad for t in spec.topologies)
-    vals = spec.unstack_values(panels, nnz_pad)
-    outs = []
-    for r in range(spec.R):
-        t = spec.topologies[r // spec.heads]
-        tt, perm = t.transpose()
-        vt = jnp.take(vals[r, : t.nnz_pad], jnp.asarray(perm))
-        outs.append(xla_ops.spmm(
-            vt, tt.column_indices, tt.row_ids, tt.m, g_r[r, : t.m]))
-    return jnp.stack(outs)
+    panels, g_r = _match(panels, g_r)
+    g_p = _pad_rows(spec, g_r, spec.m_pad, q)
+    meta = _meta_dev(spec)
+    out = _spmm_t_mod.bsr_spmm_t_batched(
+        meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"], panels, g_p,
+        heads=spec.heads, kb=spec.kb)
+    return out[:, : spec.n]
 
 
 def _sddmm_impl(spec, lhs_r, rhs_r):
     """lhs [R, m, d] x rhs [R, n, d] -> panels [R, *]."""
-    d = lhs_r.shape[-1]
-    if _use_kernels():
-        bd = 128
-        d_pad = _round_up(max(d, 1), bd)
-        lhs_p = _pad_rows(spec, lhs_r, spec.m_pad, d_pad)
-        rhs_p = _pad_rows(spec, rhs_r, spec.n_pad, d_pad)
-        return _k_sddmm_bh(
-            _meta_dev(spec)["block_cols"],
-            _meta_dev(spec)["nblocks"],
-            _meta_dev(spec)["mask"],
-            lhs_p, rhs_p,
-            R=spec.R, heads=spec.heads, mb=spec.mb,
-            max_bpr=spec.max_bpr, bm=spec.bm, bk=spec.bk, bd=bd,
-            interpret=_interp(),
-            vmem=_vmem_for(spec.bm * spec.bk, spec.bm * bd,
-                           spec.bk * bd))
-    outs = []
-    for r in range(spec.R):
-        t = spec.topologies[r // spec.heads]
-        v = spec.views[r // spec.heads]
-        flat_vals = xla_ops.sddmm(
-            lhs_r[r], rhs_r[r], t.row_ids, t.column_indices, t.valid)
-        flat = jnp.zeros((v.dump + 1,), flat_vals.dtype)
-        flat = flat.at[jnp.asarray(v.scatter_idx)].set(flat_vals)
-        p = flat[: v.dump].reshape(v.values_shape)
-        if v.max_bpr < spec.max_bpr:
-            p = jnp.concatenate([
-                p, jnp.zeros((spec.mb, spec.max_bpr - v.max_bpr,
-                              spec.bm, spec.bk), p.dtype)], axis=1)
-        outs.append(p)
-    return jnp.stack(outs)
+    lhs_r, rhs_r = _match(lhs_r, rhs_r)
+    d_pad = _round_up(max(lhs_r.shape[-1], 1), 16)
+    meta = _meta_dev(spec)
+    return _sddmm_mod.bsr_sddmm_batched(
+        meta["block_cols"], meta["nblocks"], meta["mask"],
+        _pad_rows(spec, lhs_r, spec.m_pad, d_pad),
+        _pad_rows(spec, rhs_r, spec.n_pad, d_pad), heads=spec.heads)
 
 
 def _softmax_impl(spec, panels):
@@ -467,7 +200,9 @@ def _spmm_bh_bwd(spec, res, g):
     panels, dense = res
     d_panels = _sddmm_impl(spec, g, dense)
     d_dense = _spmm_t_impl(spec, panels, g)
-    return d_panels, d_dense[:, : dense.shape[1], : dense.shape[2]]
+    return (d_panels.astype(panels.dtype),
+            d_dense[:, : dense.shape[1], : dense.shape[2]].astype(
+                dense.dtype))
 
 
 spmm_bh.defvjp(_spmm_bh_fwd, _spmm_bh_bwd)
@@ -487,8 +222,8 @@ def _sddmm_bh_bwd(spec, res, g_panels):
     lhs, rhs = res
     d_lhs = _spmm_impl(spec, g_panels, rhs)
     d_rhs = _spmm_t_impl(spec, g_panels, lhs)
-    return (d_lhs[:, : lhs.shape[1], : lhs.shape[2]],
-            d_rhs[:, : rhs.shape[1], : rhs.shape[2]])
+    return (d_lhs[:, : lhs.shape[1], : lhs.shape[2]].astype(lhs.dtype),
+            d_rhs[:, : rhs.shape[1], : rhs.shape[2]].astype(rhs.dtype))
 
 
 sddmm_bh.defvjp(_sddmm_bh_fwd, _sddmm_bh_bwd)

@@ -2,7 +2,7 @@
 
 The reference framework stops at prefill (its attention modules run full
 sequences; SURVEY.md §1 notes it has "no serving path"). This module adds
-the TPU-native decode family:
+the decode family:
 
   * ``KVCache`` — a functional (pytree) per-replica KV cache, fp32/bf16 or
     int8 with per-token dequant scales (the persistent int8 layout flagged
@@ -12,12 +12,11 @@ the TPU-native decode family:
   * ``decode_block_table`` — on-device (jit-traceable) attention-sinks +
     local-window block table from the current ``kv_len``; and
     ``table_from_topology_row`` for arbitrary ``SparseTopology`` rows.
-  * ``decode_attention`` — the fused kernel call (Pallas on TPU, jnp
-    oracle elsewhere), supporting GQA groups and ``qlen > 1`` speculative
-    verification.
+  * ``decode_attention`` — masked attention over the tabled blocks,
+    supporting GQA groups and ``qlen > 1`` speculative verification.
 
-Decode is HBM-bandwidth-bound; the kernel's speed of light is the tabled
-KV bytes / bandwidth, and the int8 cache halves those bytes.
+Decode is memory-bandwidth-bound; its speed of light is the tabled KV
+bytes / bandwidth, and the int8 cache halves those bytes.
 """
 
 from __future__ import annotations
@@ -29,10 +28,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import _common
 from ._common import round_up
-from .pallas import ragged_append as _ragged_append
-from .pallas.decode_attention import QPAD, decode_attention_kernel
+
+# most query rows one decode_attention call takes (qlen > 1 is
+# speculative verification)
+QPAD = 8
 
 __all__ = [
     "KVCache", "init_kv_cache", "append_kv", "append_kv_seq",
@@ -121,11 +121,8 @@ def append_kv(cache: KVCache, k_new, v_new, pos=None,
     length). With ``pos`` the update is ONE scalar-indexed
     ``dynamic_update_slice`` that XLA aliases in place inside a decode
     scan. Without it, each replica writes at its own ``kv_len`` through a
-    Pallas kernel whose scalar-prefetched positions drive the block index
-    maps (``pallas/ragged_append.py``) — the naive
-    ``vmap(dynamic_update_slice)`` lowers to a TPU scatter measured at
-    ~3.6 ms/token of pure cache copy on a 6-layer model
-    (benchmarks/RESULTS.md).
+    guarded ``vmap(dynamic_update_slice)`` (a Hopper ragged-append kernel
+    is listed in ROADMAP.md).
 
     ``active`` (ragged path only): optional per-replica i32/bool ``[R_kv]``
     write-enable — frozen continuous-batching slots neither write nor
@@ -174,16 +171,6 @@ def append_kv(cache: KVCache, k_new, v_new, pos=None,
           else jnp.asarray(active).astype(jnp.int32))
     adv = ok * (cache.kv_len < s_max).astype(jnp.int32)
     new_len = cache.kv_len + adv
-
-    if _common.use_kernels() and s_max % 128 == 0:
-        k2, v2, ks2, vs2 = _ragged_append.ragged_append_kernel(
-            cache.kv_len, ok, kq, vq,
-            jnp.broadcast_to(ks[:, None], (R, 128)),
-            jnp.broadcast_to(vs[:, None], (R, 128)),
-            cache.k, cache.v, cache.k_scale, cache.v_scale,
-            interpret=_common.interp())
-        return KVCache(k=k2, v=v2, kv_len=new_len,
-                       k_scale=ks2, v_scale=vs2)
 
     def upd(buf, tok, ln, okr):
         p = jnp.minimum(ln, s_max - 1)
@@ -370,37 +357,35 @@ def table_from_topology_row(topo, row: int, bk: int):
 
 
 def _oracle(q, cache, tbl, valid, bk, qlen, group, scale):
-    """Dense jnp reference (CPU path + correctness oracle)."""
+    """Dense jnp reference: each query replica attends to its tabled
+    blocks of its KV replica, causally up to its cache position."""
     R = q.shape[0]
     s_max = cache.k.shape[1]
     kf = cache.k.astype(jnp.float32) * cache.k_scale[..., None]
     vf = cache.v.astype(jnp.float32) * cache.v_scale[..., None]
 
     hd = q.shape[-1]
+    pos = jnp.arange(s_max)
 
     def one(r):
         rk = r // group
         sc = (q[r, :qlen].astype(jnp.float32) * scale) @ kf[
             rk, :, :hd].T                                          # [qlen,s]
-        pos = jnp.arange(s_max)
         qpos = cache.kv_len[rk] - qlen + jnp.arange(qlen)
-        allow = jnp.zeros((s_max,), bool)
-        for s in range(tbl.shape[1]):
-            in_blk = pos // bk == tbl[r, s]
-            allow = allow | (in_blk & (valid[r, s] == 1))
+        allow = jnp.any((pos[None, :] // bk == tbl[r][:, None])
+                        & (valid[r][:, None] == 1), axis=0)
         m = allow[None, :] & (pos[None, :] <= qpos[:, None])
         sc = jnp.where(m, sc, -1e30)
         w = jax.nn.softmax(sc, axis=-1)
         w = jnp.where(m, w, 0.0)
         return w @ vf[rk, :, :hd]
 
-    return jnp.stack([one(r) for r in range(R)])
+    return jax.vmap(one)(jnp.arange(R))
 
 
 def decode_attention(q, cache: KVCache, tbl, valid, *,
                      bk: int = 256, qlen: int = 1, group: int = 1,
-                     scale: Optional[float] = None,
-                     interpret: Optional[bool] = None):
+                     scale: Optional[float] = None):
     """Sparse decode attention: ``q [R, qlen, hd]`` against the tabled KV
     blocks. Returns ``f32[R, qlen, hd]``.
 
@@ -423,9 +408,9 @@ def decode_attention(q, cache: KVCache, tbl, valid, *,
         raise ValueError(
             f"R {R} != R_kv {cache.k.shape[0]} * group {group}")
     if group > 1 and tbl.shape[0] == cache.k.shape[0]:
-        # per-KV tables -> per-query (the kernel and oracle index by
+        # per-KV tables -> per-query (the attention indexes tables by
         # query replica; an un-expanded table would read out of range
-        # for r >= R_kv — silently wrong on hardware)
+        # for r >= R_kv)
         tbl = jnp.repeat(tbl, group, axis=0)
         valid = jnp.repeat(valid, group, axis=0)
     if tbl.shape[0] != R or valid.shape[0] != R:
@@ -433,33 +418,5 @@ def decode_attention(q, cache: KVCache, tbl, valid, *,
             f"tbl/valid rows {tbl.shape[0]}/{valid.shape[0]} != R {R} "
             f"(or R_kv {cache.k.shape[0]})")
     scale = float(scale) if scale is not None else float(hd) ** -0.5
-    hd_pad = cache.k.shape[-1]
-
-    if not _common.use_kernels():
-        out = _oracle(q, cache, tbl, valid, bk, qlen, group, scale)
-        return out[:, :, :hd]
-    interp = _common.interp() if interpret is None else interpret
-
-    qp = jnp.zeros((R, QPAD, hd_pad), jnp.float32)
-    qp = qp.at[:, :qlen, :hd].set(q.astype(jnp.float32) * scale)
-    # kernel's causal mask spans QPAD rows; rows >= qlen see positions past
-    # kv_len, which the mask rejects entirely -> their l underflows to the
-    # 1e-30 floor and the rows are sliced off here anyway.
-    kv_len_q = jnp.repeat(cache.kv_len, group)
-    R_kv = cache.k.shape[0]
-    nb = cache.s_max // bk
-    nb8 = round_up(nb, 8)
-
-    def _scales3(s):
-        s3 = s.reshape(R_kv, nb, bk)
-        if nb8 != nb:
-            s3 = jnp.concatenate(
-                [s3, jnp.ones((R_kv, nb8 - nb, bk), s.dtype)], axis=1)
-        return s3
-
-    out = decode_attention_kernel(
-        tbl.reshape(-1), valid.reshape(-1), kv_len_q,
-        qp, cache.k, cache.v,
-        _scales3(cache.k_scale), _scales3(cache.v_scale),
-        S=tbl.shape[1], bk=bk, qlen=qlen, group=group, interpret=interp)
-    return out[:, :qlen, :hd]
+    out = _oracle(q, cache, tbl, valid, bk, qlen, group, scale)
+    return out[:, :, :hd]

@@ -2,17 +2,17 @@
 
 The contiguous block cache (``ops/decode.py``) reserves ``s_max`` tokens
 per sequence replica; a serving pool with ragged lengths strands
-``s_max - len`` tokens of HBM per slot. Paging (the vLLM idea, TPU-native
-here) stores KV in a shared pool ``[P, bk, hd_pad]``; each sequence owns
+``s_max - len`` tokens of device memory per slot. Paging (the vLLM idea)
+stores KV in a shared pool ``[P, bk, hd_pad]``; each sequence owns
 an ordered page list (``page_table``), so HBM waste is bounded by one
 page per replica and admission/eviction never moves data.
 
 Division of labour (the standard serving split):
 
-  * DEVICE (jit-able): ``append_paged`` (one token per replica through
-    the Pallas paged-append kernel), ``paged_block_table`` (logical
-    sinks+window table -> physical pages), ``paged_attention`` (the
-    fused paged decode kernel / jnp oracle).
+  * DEVICE (jit-able): ``append_paged`` (one token per replica),
+    ``paged_block_table`` (logical sinks+window table -> physical
+    pages), ``paged_attention`` (masked attention over the tabled
+    pages).
   * HOST (the scheduler, between jitted segments): ``PagePool`` free-list
     allocation, ``ensure_pages`` (grow tables before the tokens that
     need them — page allocation is control flow, not dataflow, exactly
@@ -34,11 +34,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import _common
 from ._common import round_up
-from .decode import decode_block_table, pad_quantize_tokens
-from .pallas.decode_attention import QPAD
-from .pallas import paged_attention as _pk
+from .decode import QPAD, decode_block_table, pad_quantize_tokens
 
 __all__ = ["PagePool", "PagedKVCache", "init_paged_cache", "ensure_pages",
            "append_paged", "append_paged_seq", "paged_block_table",
@@ -52,9 +49,7 @@ class PagePool:
     Lives OUTSIDE the jitted dataflow (allocation is scheduling). The
     pool arrays themselves carry ``n_pages + 1 +`` padding rows: row
     ``n_pages`` is the DUMP page — skipped appends write their (masked)
-    bytes there so the append grid never revisits a live page (a shared
-    page across grid steps can be prefetched stale; see
-    ``pallas/paged_attention.paged_append_kernel``).
+    bytes there, so a skipped append never touches a live page.
     """
 
     def __init__(self, n_pages: int):
@@ -279,17 +274,7 @@ def append_paged(cache: PagedKVCache, k_new, v_new,
     page, off, ok = _resolve_write(cache, active)
     new_len = cache.kv_len + ok
 
-    if _common.use_kernels():
-        k2, v2, ks2, vs2 = _pk.paged_append_kernel(
-            page, off, ok, kq, vq,
-            jnp.broadcast_to(ks[:, None], (R, 128)),
-            jnp.broadcast_to(vs[:, None], (R, 128)),
-            cache.k, cache.v, cache.k_scale, cache.v_scale,
-            interpret=_common.interp())
-        return dataclasses.replace(cache, k=k2, v=v2, k_scale=ks2,
-                                   v_scale=vs2, kv_len=new_len)
-
-    # oracle: per-replica guarded dynamic updates into the pool
+    # per-replica guarded dynamic updates into the pool
     k2, ks2 = cache.k, cache.k_scale
     v2, vs2 = cache.v, cache.v_scale
     for i in range(R):
@@ -322,8 +307,8 @@ def append_paged_seq(cache: PagedKVCache, k_new, v_new,
     ``q`` positions are not all page-backed (or not all below the table
     capacity) writes nothing and does not advance — a partial draft
     write would desync rollback. Tokens may span a page boundary; the
-    write unrolls into ``q`` single-token paged-append kernel passes
-    (each moves tens of KB — the draft is 8 tokens, not a prompt)."""
+    write unrolls into ``q`` single-token paged appends (each moves
+    tens of KB — the draft is 8 tokens, not a prompt)."""
     R, q, _ = k_new.shape
     if q > QPAD:
         raise ValueError(f"draft length {q} > {QPAD}")
@@ -454,9 +439,8 @@ def _oracle(q, cache: PagedKVCache, phys, logical, valid, group, scale,
 
 def paged_attention(q, cache: PagedKVCache, phys, logical, valid, *,
                     group: int = 1, qlen: int = 1,
-                    scale: Optional[float] = None,
-                    interpret: Optional[bool] = None):
-    """Fused paged decode attention: ``q [R, qlen, hd]`` against the
+                    scale: Optional[float] = None):
+    """Paged decode attention: ``q [R, qlen, hd]`` against the
     tabled pool pages. Returns ``f32[R, qlen, hd]``. ``qlen > 1`` serves
     speculative verification (queries are the last ``qlen`` cache
     positions, causally masked). ``phys``/``logical``/``valid`` may be
@@ -478,23 +462,4 @@ def paged_attention(q, cache: PagedKVCache, phys, logical, valid, *,
         raise ValueError(f"table rows {phys.shape[0]} != R {R}")
     scale = float(scale) if scale is not None else float(hd) ** -0.5
 
-    if not _common.use_kernels():
-        return _oracle(q, cache, phys, logical, valid, group, scale, qlen)
-    interp = _common.interp() if interpret is None else interpret
-
-    hd_pad = cache.k.shape[-1]
-    qp = jnp.zeros((R, QPAD, hd_pad), jnp.float32)
-    qp = qp.at[:, :qlen, :hd].set(q.astype(jnp.float32) * scale)
-    kv_len_q = jnp.repeat(cache.kv_len, group)
-    P_alloc = cache.k.shape[0]
-
-    def _sc(s):
-        return s.reshape(P_alloc // 8, 8, cache.bk)
-
-    out = _pk.paged_attention_kernel(
-        phys.reshape(-1), logical.reshape(-1), valid.reshape(-1),
-        kv_len_q, qp, cache.k, cache.v,
-        _sc(cache.k_scale), _sc(cache.v_scale),
-        S=phys.shape[1], bk=cache.bk, group=group, qlen=qlen,
-        interpret=interp)
-    return out[:, :qlen, :hd]
+    return _oracle(q, cache, phys, logical, valid, group, scale, qlen)

@@ -1,37 +1,7 @@
-"""Pallas TPU block-CSR kernels (the performance path).
+"""Pallas-Triton block-sparse kernels and their plain twins.
 
-``bsr_spmm.py`` / ``bsr_sddmm.py`` / ``ell_softmax.py`` hold the kernels;
-``dispatch.py`` is the surface consumed by ``ops.api``.
+``bsr_spmm.py`` / ``bsr_spmm_t.py`` / ``bsr_sddmm.py`` hold the block-CSR
+family, ``flash_sparse.py`` the block-sparse flash attention,
+``bsr_compressed.py`` the true-BSR layout ops; ``dispatch.py`` is the flat
+surface consumed by ``ops.api``.
 """
-
-from __future__ import annotations
-
-
-def supported(topo) -> bool:
-    from . import dispatch
-
-    return dispatch.supported(topo)
-
-
-def spmm(topo, values, dense):
-    from . import dispatch
-
-    return dispatch.spmm(topo, values, dense)
-
-
-def sddmm(topo, lhs, rhs):
-    from . import dispatch
-
-    return dispatch.sddmm(topo, lhs, rhs)
-
-
-def sparse_softmax(topo, values):
-    from . import dispatch
-
-    return dispatch.sparse_softmax(topo, values)
-
-
-def spmm_bias_relu(topo, values, dense, bias, *, relu=True):
-    from . import dispatch
-
-    return dispatch.spmm_bias_relu(topo, values, dense, bias, relu=relu)

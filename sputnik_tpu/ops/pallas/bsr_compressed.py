@@ -1,370 +1,100 @@
-"""Compressed (true-BSR) SpMM kernels: offset-indexed block storage.
+"""Compressed (true-BSR) block ops: offset-indexed block storage.
 
-Same compute as ``bsr_spmm`` / ``bsr_spmm_t`` but the values panel is the
-``CompressedView`` layout ``[num_blocks + 1, bm, bk]`` addressed through
-scalar-prefetched per-row-block offsets — no ELL padding, so topologies
+Same compute as ``bsr_spmm`` / ``bsr_spmm_t`` / ``bsr_sddmm`` but the
+values are the ``CompressedView`` layout ``[num_blocks + 1, bm, bk]``
+addressed through per-row-block offsets — no ELL padding, so topologies
 with skewed per-row block counts (e.g. one dense row among sparse ones, a
 common shape in graph workloads) don't inflate memory to ``mb * max_bpr``
-tiles. The grid's slot dimension is still bounded by the *maximum* real
-blocks-per-row-block; slots past a row-block's count are predicated off
-and their index maps clamp to the dump block (index unchanged -> DMA
-elided).
+tiles.
+
+Plain ``jax.numpy`` throughout: each block's dense rows are gathered once
+and contracted in one einsum, and the ragged per-row-block sums are
+``segment_sum`` over the block -> row-block map (derived from the
+offsets). Blocks at or past ``block_offsets[-1]`` (the dump block, and on a
+sharded device the slots beyond its own block count) contribute nothing.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .._common import vmem_request as _vm
+from .._common import acc_dtype
 
 __all__ = ["bsr_spmm_panel_c", "bsr_spmm_t_panel_c", "bsr_sddmm_panel_c",
-           "c_softmax_stats", "c_softmax_apply"]
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "mb", "max_bpr", "num_blocks", "bm", "bk", "bn", "epilogue",
-    "interpret"))
-def bsr_spmm_panel_c(
-    block_offsets,         # i32[mb + 1] (scalar prefetch)
-    block_cols,            # i32[num_blocks + 1]
-    values,                # f32[num_blocks + 1, bm, bk]
-    dense,                 # f32[kb*bk, n_pad]
-    bias,                  # f32[mb*bm, 1]
-    *,
-    mb: int,
-    max_bpr: int,
-    num_blocks: int,
-    bm: int,
-    bk: int,
-    bn: int,
-    epilogue: str = "none",
-    interpret: bool = False,
-):
-    n_pad = dense.shape[1]
-    nb = n_pad // bn
-
-    def gblk(offs, i, s):
-        return jnp.minimum(offs[i] + s, num_blocks)
-
-    def kernel(offs_ref, cols_ref, vals_ref, dense_ref, bias_ref, out_ref):
-        i = pl.program_id(0)
-        s = pl.program_id(2)
-
-        @pl.when(s == 0)
-        def _():
-            out_ref[:] = jnp.zeros_like(out_ref)
-
-        @pl.when(offs_ref[i] + s < offs_ref[i + 1])
-        def _():
-            out_ref[:] += jax.lax.dot(
-                vals_ref[0], dense_ref[:],
-                preferred_element_type=jnp.float32)
-
-        if epilogue != "none":
-            @pl.when(s == max_bpr - 1)
-            def _():
-                pre = out_ref[:] + bias_ref[:]
-                out_ref[:] = (jnp.maximum(pre, 0.0)
-                              if epilogue == "bias_relu" else pre)
-
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(mb, nb, max_bpr),
-            in_specs=[
-                pl.BlockSpec((1, bm, bk),
-                             lambda i, j, s, offs, cols: (
-                                 gblk(offs, i, s), 0, 0)),
-                pl.BlockSpec((bk, bn),
-                             lambda i, j, s, offs, cols: (
-                                 cols[gblk(offs, i, s)], j)),
-                pl.BlockSpec((bm, 1), lambda i, j, s, offs, cols: (i, 0)),
-            ],
-            out_specs=pl.BlockSpec((bm, bn),
-                                   lambda i, j, s, offs, cols: (i, j)),
-        ),
-        out_shape=jax.ShapeDtypeStruct((mb * bm, n_pad), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=_vm(bm * bk, bk * bn, 2 * bm * bn),
-        ),
-        interpret=interpret,
-    )(block_offsets, block_cols, values, dense, bias)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "kb", "max_bpc", "num_blocks", "bm", "bk", "bq", "interpret"))
-def bsr_spmm_t_panel_c(
-    t_gblk,                # i32[kb * max_bpc] global block ids
-    t_rows,                # i32[kb * max_bpc] source row-blocks
-    t_nblocks,             # i32[kb]
-    values,                # f32[num_blocks + 1, bm, bk]
-    g,                     # f32[mb*bm, q_pad]
-    *,
-    kb: int,
-    max_bpc: int,
-    num_blocks: int,
-    bm: int,
-    bk: int,
-    bq: int,
-    interpret: bool = False,
-):
-    q_pad = g.shape[1]
-    qb = q_pad // bq
-
-    def kernel(gb_ref, tr_ref, tn_ref, vals_ref, g_ref, out_ref):
-        j = pl.program_id(0)
-        u = pl.program_id(2)
-
-        @pl.when(u == 0)
-        def _():
-            out_ref[:] = jnp.zeros_like(out_ref)
-
-        @pl.when(u < tn_ref[j])
-        def _():
-            out_ref[:] += jax.lax.dot_general(
-                vals_ref[0], g_ref[:],
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(kb, qb, max_bpc),
-            in_specs=[
-                pl.BlockSpec((1, bm, bk),
-                             lambda j, q, u, gb, tr, tn: (
-                                 gb[j * max_bpc + u], 0, 0)),
-                pl.BlockSpec((bm, bq),
-                             lambda j, q, u, gb, tr, tn: (
-                                 tr[j * max_bpc + u], q)),
-            ],
-            out_specs=pl.BlockSpec((bk, bq),
-                                   lambda j, q, u, gb, tr, tn: (j, q)),
-        ),
-        out_shape=jax.ShapeDtypeStruct((kb * bk, q_pad), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=_vm(bm * bk, bm * bq, 2 * bk * bq),
-        ),
-        interpret=interpret,
-    )(t_gblk, t_rows, t_nblocks, values, g)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "mb", "max_bpr", "num_blocks", "bm", "bk", "bd", "interpret"))
-def bsr_sddmm_panel_c(
-    block_offsets,         # i32[mb + 1] (scalar prefetch)
-    block_cols,            # i32[num_blocks + 1]
-    lhs,                   # f32[mb*bm, d_pad]
-    rhs,                   # f32[kb*bk, d_pad]
-    mask,                  # f32[num_blocks + 1, bm, bk]
-    *,
-    mb: int,
-    max_bpr: int,
-    num_blocks: int,
-    bm: int,
-    bk: int,
-    bd: int,
-    interpret: bool = False,
-):
-    """Sampled ``lhs @ rhs^T`` into the COMPRESSED panel
-    ``f32[num_blocks + 1, bm, bk]``.
-
-    Padded grid steps (``s`` beyond row ``i``'s block count) are routed
-    to the DUMP block ``num_blocks`` — never to a later row's real
-    block. A ``min(offs[i]+s, num_blocks)`` clamp would land padded
-    steps on later rows' blocks and zero them at ``t==0``; that is only
-    safe under strictly sequential grid order, which the 'parallel'
-    row dimension does not guarantee (megacore splits / Mosaic
-    reordering). Racy writes to the dump block itself are fine: its
-    mask is zero and the slot is sliced off."""
-    d_pad = lhs.shape[1]
-    dt = d_pad // bd
-
-    def gblk(offs, i, s):
-        j = offs[i] + s
-        return jnp.where(j < offs[i + 1], j, num_blocks)
-
-    def kernel(offs_ref, cols_ref, lhs_ref, rhs_ref, mask_ref, out_ref,
-               acc):
-        i = pl.program_id(0)
-        s = pl.program_id(1)
-        t = pl.program_id(2)
-
-        # VMEM-scratch accumulate, single store at the last contraction
-        # slot (the measured ~6% revisited-out_ref penalty)
-        @pl.when(t == 0)
-        def _():
-            acc[:] = jnp.zeros_like(acc)
-
-        @pl.when(offs_ref[i] + s < offs_ref[i + 1])
-        def _():
-            acc[:] += jax.lax.dot_general(
-                lhs_ref[:], rhs_ref[:],
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-        @pl.when(t == dt - 1)
-        def _():
-            out_ref[0] = acc[:] * mask_ref[0]
-
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(mb, max_bpr, dt),
-            in_specs=[
-                pl.BlockSpec((bm, bd), lambda i, s, t, offs, cols: (i, t)),
-                pl.BlockSpec((bk, bd),
-                             lambda i, s, t, offs, cols: (
-                                 cols[gblk(offs, i, s)], t)),
-                pl.BlockSpec((1, bm, bk),
-                             lambda i, s, t, offs, cols: (
-                                 gblk(offs, i, s), 0, 0)),
-            ],
-            out_specs=pl.BlockSpec((1, bm, bk),
-                                   lambda i, s, t, offs, cols: (
-                                       gblk(offs, i, s), 0, 0)),
-            scratch_shapes=[pltpu.VMEM((bm, bk), jnp.float32)],
-        ),
-        out_shape=jax.ShapeDtypeStruct((num_blocks + 1, bm, bk),
-                                       jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-            vmem_limit_bytes=_vm(bm * bd, bk * bd, 3 * bm * bk),
-        ),
-        interpret=interpret,
-    )(block_offsets, block_cols, lhs, rhs, mask)
-
+           "c_softmax"]
 
 _NEG_LARGE = -1e30
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "mb", "max_bpr", "num_blocks", "bm", "bk", "interpret"))
-def c_softmax_stats(
-    block_offsets,         # i32[mb + 1] (scalar prefetch)
-    values,                # f32[num_blocks + 1, bm, bk]
-    mask,                  # f32[num_blocks + 1, bm, bk]
-    *,
-    mb: int,
-    max_bpr: int,
-    num_blocks: int,
-    bm: int,
-    bk: int,
-    interpret: bool = False,
-):
-    """Online row stats over the ragged block->row-block map: returns
-    ``(row_max, row_denom)``, each ``f32[mb*bm, 128]`` broadcast along
-    lanes (the segment reduction that closes softmax over the compressed
-    layout — ragged rows never materialise)."""
-
-    def gblk(offs, i, s):
-        return jnp.minimum(offs[i] + s, num_blocks)
-
-    def kernel(offs_ref, vals_ref, mask_ref, m_ref, l_ref, m_scr, l_scr):
-        i = pl.program_id(0)
-        s = pl.program_id(1)
-
-        @pl.when(s == 0)
-        def _():
-            m_scr[:] = jnp.full_like(m_scr, _NEG_LARGE)
-            l_scr[:] = jnp.zeros_like(l_scr)
-
-        @pl.when(offs_ref[i] + s < offs_ref[i + 1])
-        def _():
-            v = jnp.where(mask_ref[0] != 0, vals_ref[0], _NEG_LARGE)
-            m_prev = m_scr[:, :1]
-            m_new = jnp.maximum(m_prev, jnp.max(v, axis=1, keepdims=True))
-            p = jnp.where(mask_ref[0] != 0, jnp.exp(v - m_new), 0.0)
-            corr = jnp.exp(m_prev - m_new)
-            l_scr[:, :1] = l_scr[:, :1] * corr + jnp.sum(
-                p, axis=1, keepdims=True)
-            m_scr[:, :1] = m_new
-
-        @pl.when(s == max_bpr - 1)
-        def _():
-            m_ref[:] = jnp.broadcast_to(m_scr[:, :1], m_ref.shape)
-            l_ref[:] = jnp.broadcast_to(l_scr[:, :1], l_ref.shape)
-
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(mb, max_bpr),
-            in_specs=[
-                pl.BlockSpec((1, bm, bk),
-                             lambda i, s, offs: (gblk(offs, i, s), 0, 0)),
-                pl.BlockSpec((1, bm, bk),
-                             lambda i, s, offs: (gblk(offs, i, s), 0, 0)),
-            ],
-            out_specs=[
-                pl.BlockSpec((bm, 128), lambda i, s, offs: (i, 0)),
-                pl.BlockSpec((bm, 128), lambda i, s, offs: (i, 0)),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((bm, 128), jnp.float32),
-                pltpu.VMEM((bm, 128), jnp.float32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((mb * bm, 128), jnp.float32),
-            jax.ShapeDtypeStruct((mb * bm, 128), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(block_offsets, values, mask)
+def _rows_live(block_offsets, n_slots, mb):
+    """Row block of every stored block, and whether it is a real block."""
+    g = jnp.arange(n_slots)
+    rows = jnp.searchsorted(block_offsets, g, side="right") - 1
+    return jnp.clip(rows, 0, mb - 1), g < block_offsets[-1]
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "num_blocks", "bm", "bk", "interpret"))
-def c_softmax_apply(
-    block_rows,            # i32[num_blocks + 1] (scalar prefetch)
-    values,                # f32[num_blocks + 1, bm, bk]
-    mask,                  # f32[num_blocks + 1, bm, bk]
-    row_max,               # f32[mb*bm, 128]
-    row_denom,             # f32[mb*bm, 128]
-    *,
-    num_blocks: int,
-    bm: int,
-    bk: int,
-    interpret: bool = False,
-):
-    """Normalise each compressed block against its row-block's stats."""
+def bsr_spmm_panel_c(block_offsets, block_cols, values, dense, bias=None, *,
+                     mb: int, max_bpr: int, num_blocks: int, bm: int,
+                     bk: int, bn: int = 128, epilogue: str = "none"):
+    """``f32[mb * bm, n_pad]`` from ``values [num_blocks + 1, bm, bk]``,
+    ``dense [kb * bk, n_pad]`` and (with an epilogue) ``bias f32[mb*bm,
+    1]``."""
+    del max_bpr, num_blocks, bn
+    n = dense.shape[-1]
+    rows, live = _rows_live(block_offsets, values.shape[0], mb)
+    g = dense.reshape(-1, bk, n)[block_cols]                 # [G+1, bk, n]
+    contrib = jnp.einsum("gak,gkn->gan",
+                         jnp.where(live[:, None, None], values, 0), g,
+                         preferred_element_type=acc_dtype(values, g))
+    out = jax.ops.segment_sum(contrib, rows, num_segments=mb)
+    out = out.reshape(mb * bm, n)
+    if epilogue != "none":
+        out = out + bias.reshape(-1, 1)
+        if epilogue == "bias_relu":
+            out = jnp.maximum(out, 0.0)
+    return out
 
-    def kernel(rows_ref, vals_ref, mask_ref, m_ref, l_ref, out_ref):
-        m = m_ref[:, :1]
-        l = jnp.maximum(l_ref[:, :1], 1e-30)
-        p = jnp.exp(vals_ref[0] - m) / l
-        out_ref[0] = jnp.where(mask_ref[0] != 0, p, 0.0)
 
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(num_blocks + 1,),
-            in_specs=[
-                pl.BlockSpec((1, bm, bk), lambda g, rows: (g, 0, 0)),
-                pl.BlockSpec((1, bm, bk), lambda g, rows: (g, 0, 0)),
-                pl.BlockSpec((bm, 128), lambda g, rows: (rows[g], 0)),
-                pl.BlockSpec((bm, 128), lambda g, rows: (rows[g], 0)),
-            ],
-            out_specs=pl.BlockSpec((1, bm, bk), lambda g, rows: (g, 0, 0)),
-        ),
-        out_shape=jax.ShapeDtypeStruct((num_blocks + 1, bm, bk),
-                                       jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(block_rows, values, mask, row_max, row_denom)
+def bsr_spmm_t_panel_c(t_gblk, t_rows, t_nblocks, values, g, *, kb: int,
+                       max_bpc: int, num_blocks: int, bm: int, bk: int):
+    """``A^T @ G``: ``[kb * bk, q]`` from the transposed block lists
+    (global block id and source row block per column-block slot)."""
+    del num_blocks
+    q = g.shape[-1]
+    gb, tr = t_gblk.reshape(kb, max_bpc), t_rows.reshape(kb, max_bpc)
+    live = jnp.arange(max_bpc)[None, :] < t_nblocks[:, None]
+    a = jnp.where(live[:, :, None, None], values[gb], 0)    # [kb, U, bm, bk]
+    gg = g.reshape(-1, bm, q)[tr]                            # [kb, U, bm, q]
+    out = jnp.einsum("juak,juaq->jkq", a, gg,
+                     preferred_element_type=acc_dtype(a, gg))
+    return out.reshape(kb * bk, q)
+
+
+def bsr_sddmm_panel_c(block_offsets, block_cols, lhs, rhs, mask, *,
+                      mb: int, max_bpr: int, num_blocks: int, bm: int,
+                      bk: int, bd: int = 0):
+    """Sampled ``lhs @ rhs^T`` into the COMPRESSED panel ``f32[num_blocks
+    + 1, bm, bk]`` (zero outside real blocks and their element masks)."""
+    del max_bpr, num_blocks, bd
+    d = lhs.shape[-1]
+    rows, live = _rows_live(block_offsets, mask.shape[0], mb)
+    ll = lhs.reshape(mb, bm, d)[rows]                        # [G+1, bm, d]
+    rr = rhs.reshape(-1, bk, d)[block_cols]                  # [G+1, bk, d]
+    out = jnp.einsum("gad,gkd->gak", ll, rr,
+                     preferred_element_type=acc_dtype(ll, rr))
+    return jnp.where(live[:, None, None] & (mask != 0), out, 0.0)
+
+
+def c_softmax(block_offsets, values, mask, *, mb: int):
+    """Masked row softmax over the ragged block -> row-block map."""
+    rows, live = _rows_live(block_offsets, values.shape[0], mb)
+    keep = live[:, None, None] & (mask != 0)
+    v = jnp.where(keep, values, _NEG_LARGE)
+    row_max = jax.ops.segment_max(jnp.max(v, axis=2), rows, num_segments=mb)
+    row_max = jnp.maximum(row_max, _NEG_LARGE)                # [mb, bm]
+    e = jnp.where(keep, jnp.exp(v - row_max[rows][:, :, None]), 0.0)
+    denom = jax.ops.segment_sum(jnp.sum(e, axis=2), rows, num_segments=mb)
+    denom = jnp.maximum(denom[rows][:, :, None],
+                        jnp.finfo(values.dtype).tiny)
+    return e / denom

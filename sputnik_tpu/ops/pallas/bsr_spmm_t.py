@@ -1,108 +1,60 @@
 """Transposed block-CSR SpMM: ``A^T @ G`` straight off the *original* panel.
 
 The reference pays a cuSPARSE CSR->CSC conversion every backward pass
-(``/root/reference/src/transpose_cuda.cu:90-99``); on TPU even a precomputed
-element permutation is a multi-ms gather at scale. This kernel removes the
-permutation entirely: the transposed topology is only *block metadata*
-(``BlockView.transpose_meta``) — for each block column ``j``, the list of
-``(row_block, slot)`` panel blocks sitting in that column — and each tile is
-transposed for free inside the MXU contraction (``dot_general`` contracting
-the row dimension).
+(``src/transpose_cuda.cu:90-99``). Here the transposed topology is only
+*block metadata* (``BlockView.transpose_meta``): for each block column
+``j``, the list of ``(row_block, slot)`` panel blocks sitting in that
+column. The op gathers those blocks and the matching rows of ``G`` and
+contracts them in one einsum that transposes each tile inside the
+contraction — no value permutation. XLA compiles it on every platform: a
+Pallas-Triton kernel walking the same lists was not faster on an H100
+(``PERF.md``, bring-up).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .._common import vmem_request as _vm
+from .._common import acc_dtype
 
-__all__ = ["bsr_spmm_t_panel"]
+__all__ = ["bsr_spmm_t_batched", "bsr_spmm_t_panel"]
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "kb", "max_bpc", "mb", "bm", "bk", "bq", "precision", "interpret"
-    ),
-)
-def bsr_spmm_t_panel(
-    t_src_i,               # i32[kb * max_bpc] row-block of source panel block
-    t_src_s,               # i32[kb * max_bpc] slot of source panel block
-    t_nblocks,             # i32[kb]
-    values_panel,          # f32[mb, max_bpr, bm, bk]
-    g,                     # f32[mb * bm, q_pad]
-    *,
-    kb: int,
-    max_bpc: int,
-    mb: int,
-    bm: int,
-    bk: int,
-    bq: int,
-    precision: str = "default",
-    interpret: bool = False,
-):
-    """Returns ``A^T @ G``: ``f32[kb * bk, q_pad]``."""
-    q_pad = g.shape[1]
-    qb = q_pad // bq
-    prec = jax.lax.Precision[precision.upper()]
+def _spmm_t_plain(ti, ts, tn, panels, g, *, heads, kb):
+    R, mb, _, bm, bk = panels.shape
+    B = ti.shape[0]
+    max_bpc = ti.shape[1] // kb
+    q = g.shape[-1]
 
-    def kernel(ti_ref, ts_ref, tn_ref, vals_ref, g_ref, out_ref, acc_ref):
-        j = pl.program_id(0)
-        u = pl.program_id(2)
+    def one(ti, ts, tn, p, g):      # p [h, mb, S, bm, bk], g [h, mb*bm, q]
+        ti, ts = ti.reshape(kb, max_bpc), ts.reshape(kb, max_bpc)
+        live = jnp.arange(max_bpc)[None, :] < tn[:, None]
+        a = jnp.where(live[None, :, :, None, None], p[:, ti, ts], 0)
+        gg = g.reshape(heads, mb, bm, q)[:, ti]     # [h, kb, U, bm, q]
+        return jnp.einsum("hjuak,hjuaq->hjkq", a, gg,
+                          preferred_element_type=acc_dtype(a, gg))
 
-        # VMEM scratch accumulation, single store at the last slot (same
-        # ~6% win as bsr_spmm: a revisited output block round-trips through
-        # the pipeline's copy machinery, the scratch does not).
-        @pl.when(u == 0)
-        def _():
-            acc_ref[:] = jnp.zeros_like(acc_ref)
+    out = jax.vmap(one)(ti, ts, tn,
+                        panels.reshape((B, heads) + panels.shape[1:]),
+                        g.reshape(B, heads, -1, q))
+    return out.reshape(R, kb * bk, q)
 
-        @pl.when(u < tn_ref[j])
-        def _():
-            # A_block^T @ G_block: contract the row (bm) dimension.
-            acc_ref[:] += jax.lax.dot_general(
-                vals_ref[0, 0],
-                g_ref[:],
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                precision=prec,
-                preferred_element_type=jnp.float32,
-            )
 
-        @pl.when(u == max_bpc - 1)
-        def _():
-            out_ref[:] = acc_ref[:]
+def bsr_spmm_t_batched(t_src_i, t_src_s, t_nblocks, panels, g, *,
+                       heads: int = 1, kb: int):
+    """Batched ``A_r^T @ G_r``: ``t_src_i/t_src_s i32[B, kb * max_bpc]``,
+    ``t_nblocks i32[B, kb]``, ``panels [R, mb, max_bpr, bm, bk]``, ``g
+    [R, mb * bm, q]`` -> ``[R, kb * bk, q]``."""
+    return _spmm_t_plain(t_src_i, t_src_s, t_nblocks, panels, g,
+                         heads=heads, kb=kb)
 
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(kb, qb, max_bpc),
-            in_specs=[
-                pl.BlockSpec(
-                    (1, 1, bm, bk),
-                    lambda j, q, u, ti, ts, tn: (
-                        ti[j * max_bpc + u], ts[j * max_bpc + u], 0, 0
-                    ),
-                ),
-                pl.BlockSpec(
-                    (bm, bq),
-                    lambda j, q, u, ti, ts, tn: (ti[j * max_bpc + u], q),
-                ),
-            ],
-            out_specs=pl.BlockSpec(
-                (bk, bq), lambda j, q, u, ti, ts, tn: (j, q)
-            ),
-            scratch_shapes=[pltpu.VMEM((bk, bq), jnp.float32)],
-        ),
-        out_shape=jax.ShapeDtypeStruct((kb * bk, q_pad), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=_vm(bm * bk, bm * bq, 2 * bk * bq),
-        ),
-        interpret=interpret,
-    )(t_src_i, t_src_s, t_nblocks, values_panel, g)
+
+def bsr_spmm_t_panel(t_src_i, t_src_s, t_nblocks, values_panel, g, *,
+                     kb: int, max_bpc: int, mb: int, bm: int, bk: int):
+    """Returns ``A^T @ G``: ``f32[kb * bk, q_pad]`` for one panel
+    ``[mb, max_bpr, bm, bk]`` and ``g [mb * bm, q_pad]``."""
+    del max_bpc, mb, bm, bk
+    return bsr_spmm_t_batched(
+        t_src_i[None], t_src_s[None], t_nblocks[None], values_panel[None],
+        g[None], kb=kb)[0]

@@ -1,15 +1,15 @@
-"""Panel-native differentiable ops — the canonical TPU hot path.
+"""Panel-native differentiable ops — the canonical hot path.
 
 The flat-CSR op set (``ops/api.py``) keeps the reference's calling
-convention (``values[nnz]`` in CSR order, ``src/sputnik.cpp:36-42``), but on
-TPU any layout change of 10^6+ elements is a multi-ms gather. So the
-framework's *device* layout for sparse values is the MXU block panel
+convention (``values[nnz]`` in CSR order, ``src/sputnik.cpp:36-42``), but a
+layout change of 10^6+ elements is a multi-ms gather. So the framework's
+*device* layout for sparse values is the block panel
 ``f32[mb, max_bpr, bm, bk]`` (``blocking.BlockView``), and this module closes
 the whole op algebra over that layout with ZERO element permutations:
 
   * ``spmm``          : panel  x dense  -> dense      (BSR kernel)
   * ``spmm_t``        : panel^T x dense -> dense      (transposed *metadata*,
-                        tiles transposed inside the MXU — no value movement)
+                        tiles transposed inside the contraction)
   * ``sddmm``         : dense x dense   -> panel      (BSR kernel)
   * ``sparse_softmax``: panel -> panel               (axis reductions)
   * backward passes compose the same three kernels, exactly the reference's
@@ -20,9 +20,9 @@ CSR <-> panel conversion happens once at the boundary
 (``values_to_panel`` / ``panel_to_values``), host-side for module init and
 checkpoint import/export.
 
-Off-TPU these ops run the same algebra through the XLA oracle by converting
-panel -> flat with host-precomputed indices (cheap on CPU), so the whole
-suite tests one code path.
+Each op calls its kernel module's entry, which runs the Pallas-Triton
+kernel on a GPU and the plain block-gather version elsewhere
+(``_common.route``).
 """
 
 from __future__ import annotations
@@ -34,10 +34,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import xla_ops
-from ._common import interp as _interp
 from ._common import round_up as _round_up
-from ._common import use_kernels as _use_kernels
+from .pallas import bsr_compressed as _c
 from .pallas import bsr_sddmm as _sddmm_mod
 from .pallas import bsr_spmm as _spmm_mod
 from .pallas import bsr_spmm_t as _spmm_t_mod
@@ -59,15 +57,11 @@ __all__ = [
 
 
 def default_block(topo) -> Tuple[int, int]:
-    """Tile-size heuristic (measured on v5e at 4096^3 d=0.1, r2 sweep with
-    scratch-acc + bf16 streams): (1024, 512) balances the training trio —
-    fwd 0.82 / transposed 0.85 / sddmm 0.95 ms, ~15% faster end-to-end than
-    the r1 square-512 default; small matrices keep 128 so block granularity
-    and padding waste stay low. Forward-only workloads can pass
-    ``PanelSpec(topo, bm=2048, bk=1024, bn=1024)`` (0.54-0.76 ms fwd,
-    same-session parity with XLA's dense bf16 matmul at occupancy 1.0)."""
-    if topo.m >= 2048 and topo.n >= 2048:
-        return 1024, 512
+    """Block tile ``(bm, bk)``: 128 x 128 — one Triton program's output
+    rows by the walk's block width. Both are powers of two, and each
+    pipelined stage (a ``128 x 32`` panel chunk plus a ``32 x 128`` dense
+    chunk) stays far inside a block's 227 KB of shared memory."""
+    del topo
     return 128, 128
 
 
@@ -189,14 +183,8 @@ def _spec(spec) -> PanelSpec:
 
 
 # ---------------------------------------------------------------------------
-# Raw impls (kernel on TPU, oracle elsewhere).
+# Raw impls (each kernel entry picks the kernel or the plain version).
 # ---------------------------------------------------------------------------
-
-
-def _flat(spec, panel):
-    """Panel -> flat CSR values via host indices (oracle path only)."""
-    return panel_to_values(spec.topo, panel, spec.bm, spec.bk,
-                           compressed=spec.compressed)
 
 
 def _check_rows(name, x, n_true, n_pad):
@@ -213,62 +201,52 @@ def _check_rows(name, x, n_true, n_pad):
 
 
 def _match_dtypes(panel, dense):
-    """Promote to a common dtype (bf16 x bf16 streams at half the HBM
-    traffic and is numerically identical to the TPU's default-precision f32
-    matmul, which truncates inputs to bf16 anyway; accumulation is always
-    f32 in the kernels)."""
+    """Promote to a common dtype (accumulation is always f32)."""
     if panel.dtype != dense.dtype:
         dt = jnp.promote_types(panel.dtype, dense.dtype)
         panel, dense = panel.astype(dt), dense.astype(dt)
     return panel, dense
 
 
+def _pad2(x, rows, cols):
+    """Zero-pad a 2-D operand to ``[rows, cols]`` (no copy when it already
+    has that shape — the hot path)."""
+    if x.shape == (rows, cols):
+        return x
+    return jnp.zeros((rows, cols), x.dtype).at[
+        : x.shape[0], : x.shape[1]].set(x)
+
+
+def _out_tile(q: int, cap: int) -> int:
+    """Output-tile width: 16 for narrow outputs, ``cap`` otherwise."""
+    return cap if q > cap // 2 else 16
+
+
 def _spmm_impl(spec, panel, dense, bias=None, epilogue="none"):
     t, bv = spec.topo, spec.view
     _check_rows("dense", dense, t.n, bv.n_pad)
     panel, dense = _match_dtypes(panel, dense)
-    if _use_kernels():
-        n_out = dense.shape[-1]
-        bn = spec.bn or (1024 if n_out >= 4096 else
-                         512 if n_out >= 2048 else 128)
-        n_pad = _round_up(max(n_out, 1), bn)
-        if dense.shape == (bv.n_pad, n_pad):
-            dense_pad = dense  # already padded: skip the copy (hot path)
-        else:
-            dense_pad = jnp.zeros((bv.n_pad, n_pad), dense.dtype)
-            dense_pad = dense_pad.at[: dense.shape[0], :n_out].set(dense)
-        bias_pad = jnp.zeros((bv.m_pad, 1), jnp.float32)
-        if bias is not None:
-            bias_pad = bias_pad.at[: t.m, 0].set(bias)
-        if spec.compressed:
-            from .pallas import bsr_compressed as _c
-
-            out = _c.bsr_spmm_panel_c(
-                jnp.asarray(bv.block_offsets),
-                jnp.asarray(bv.block_cols),
-                panel, dense_pad, bias_pad,
-                mb=bv.mb, max_bpr=bv.max_bpr,
-                num_blocks=bv.num_blocks,
-                bm=spec.bm, bk=spec.bk, bn=bn,
-                epilogue=epilogue, interpret=_interp(),
-            )
-            return out[: t.m, :n_out]
-        out = _spmm_mod.bsr_spmm_panel(
-            jnp.asarray(bv.block_cols.reshape(-1)),
-            jnp.asarray(bv.nblocks),
-            panel, dense_pad, bias_pad,
-            mb=bv.mb, max_bpr=bv.max_bpr, kb=bv.kb,
-            bm=spec.bm, bk=spec.bk, bn=bn,
-            epilogue=epilogue, interpret=_interp(),
-        )
+    n_out = dense.shape[-1]
+    bn = spec.bn or _out_tile(n_out, 128)
+    dense_pad = _pad2(dense, bv.n_pad, _round_up(max(n_out, 1), bn))
+    bias_pad = None
+    if bias is not None:
+        bias_pad = jnp.zeros((bv.m_pad,), jnp.promote_types(
+            bias.dtype, jnp.float32)).at[: t.m].set(bias)
+    if spec.compressed:
+        out = _c.bsr_spmm_panel_c(
+            jnp.asarray(bv.block_offsets), jnp.asarray(bv.block_cols),
+            panel, dense_pad,
+            None if bias_pad is None else bias_pad[:, None],
+            mb=bv.mb, max_bpr=bv.max_bpr, num_blocks=bv.num_blocks,
+            bm=spec.bm, bk=spec.bk, bn=bn, epilogue=epilogue)
         return out[: t.m, :n_out]
-    vals = _flat(spec, panel)
-    out = xla_ops.spmm(vals, t.column_indices, t.row_ids, t.m, dense)
-    if epilogue != "none":
-        out = out + bias[:, None]
-        if epilogue == "bias_relu":
-            out = jnp.maximum(out, 0.0)
-    return out
+    out = _spmm_mod.bsr_spmm_batched(
+        jnp.asarray(bv.block_cols.reshape(1, -1)),
+        jnp.asarray(bv.nblocks[None]), panel[None], dense_pad[None],
+        bias_pad, bn=bn, epilogue=epilogue,
+        mask=jnp.asarray(bv.mask[None]))[0]
+    return out[: t.m, :n_out]
 
 
 def _spmm_t_impl(spec, panel, g):
@@ -276,91 +254,44 @@ def _spmm_t_impl(spec, panel, g):
     t, bv = spec.topo, spec.view
     _check_rows("g", g, t.m, bv.m_pad)
     panel, g = _match_dtypes(panel, g)
-    if _use_kernels():
-        t_nblocks, t_src = bv.transpose_meta()
-        max_bpc = t_src.shape[1]
-        q_out = g.shape[-1]
-        bq = spec.bn or (1024 if q_out >= 4096 else
-                         512 if q_out >= 2048 else 128)
-        q_pad = _round_up(max(q_out, 1), bq)
-        if g.shape == (bv.m_pad, q_pad):
-            g_pad = g
-        else:
-            g_pad = jnp.zeros((bv.m_pad, q_pad), g.dtype)
-            g_pad = g_pad.at[: g.shape[0], :q_out].set(g)
-        if spec.compressed:
-            from .pallas import bsr_compressed as _c
-
-            out = _c.bsr_spmm_t_panel_c(
-                jnp.asarray(t_src[:, :, 0].reshape(-1)),
-                jnp.asarray(t_src[:, :, 1].reshape(-1)),
-                jnp.asarray(t_nblocks),
-                panel, g_pad,
-                kb=bv.kb, max_bpc=max_bpc,
-                num_blocks=bv.num_blocks,
-                bm=spec.bm, bk=spec.bk, bq=bq, interpret=_interp(),
-            )
-            return out[: t.n, :q_out]
-        out = _spmm_t_mod.bsr_spmm_t_panel(
+    t_nblocks, t_src = bv.transpose_meta()
+    q_out = g.shape[-1]
+    g_pad = _pad2(g, bv.m_pad, q_out)
+    if spec.compressed:
+        out = _c.bsr_spmm_t_panel_c(
             jnp.asarray(t_src[:, :, 0].reshape(-1)),
             jnp.asarray(t_src[:, :, 1].reshape(-1)),
-            jnp.asarray(t_nblocks),
-            panel, g_pad,
-            kb=bv.kb, max_bpc=max_bpc, mb=bv.mb,
-            bm=spec.bm, bk=spec.bk, bq=bq, interpret=_interp(),
-        )
-        return out[: t.n, :q_out]
-    vals = _flat(spec, panel)
-    topo_t, perm = t.transpose()
-    vals_t = jnp.take(vals, jnp.asarray(perm))
-    return xla_ops.spmm(
-        vals_t, topo_t.column_indices, topo_t.row_ids, topo_t.m, g
-    )
+            jnp.asarray(t_nblocks), panel, g_pad,
+            kb=bv.kb, max_bpc=t_src.shape[1], num_blocks=bv.num_blocks,
+            bm=spec.bm, bk=spec.bk)
+        return out[: t.n]
+    out = _spmm_t_mod.bsr_spmm_t_batched(
+        jnp.asarray(t_src[:, :, 0].reshape(1, -1)),
+        jnp.asarray(t_src[:, :, 1].reshape(1, -1)),
+        jnp.asarray(t_nblocks[None]), panel[None], g_pad[None],
+        kb=bv.kb)[0]
+    return out[: t.n]
 
 
 def _sddmm_impl(spec, lhs, rhs):
     t, bv = spec.topo, spec.view
     _check_rows("lhs", lhs, t.m, bv.m_pad)
     _check_rows("rhs", rhs, t.n, bv.n_pad)
-    if _use_kernels():
-        d = lhs.shape[-1]
-        # deeper contraction tiles amortise per-step overhead on large d
-        bd = 512 if d >= 2048 else 128
-        d_pad = _round_up(max(d, 1), bd)
-        if lhs.shape == (bv.m_pad, d_pad):
-            lhs_pad = lhs
-        else:
-            lhs_pad = jnp.zeros((bv.m_pad, d_pad), lhs.dtype)
-            lhs_pad = lhs_pad.at[: lhs.shape[0], :d].set(lhs)
-        if rhs.shape == (bv.n_pad, d_pad):
-            rhs_pad = rhs
-        else:
-            rhs_pad = jnp.zeros((bv.n_pad, d_pad), rhs.dtype)
-            rhs_pad = rhs_pad.at[: rhs.shape[0], :d].set(rhs)
-        if spec.compressed:
-            from .pallas import bsr_compressed as _c
-
-            out = _c.bsr_sddmm_panel_c(
-                jnp.asarray(bv.block_offsets),
-                jnp.asarray(bv.block_cols),
-                lhs_pad, rhs_pad, jnp.asarray(bv.mask, jnp.float32),
-                mb=bv.mb, max_bpr=bv.max_bpr, num_blocks=bv.num_blocks,
-                bm=spec.bm, bk=spec.bk, bd=bd, interpret=_interp(),
-            )
-            # the dump slot is only visited when some row-block clamps;
-            # otherwise its content is undefined (NaN in interpret mode) —
-            # poison for global-norm/optimizer passes over the raw panel
-            return out.at[bv.num_blocks].set(0.0)
-        return _sddmm_mod.bsr_sddmm_panel(
-            jnp.asarray(bv.block_cols.reshape(-1)),
-            jnp.asarray(bv.nblocks),
+    lhs, rhs = _match_dtypes(lhs, rhs)
+    d_pad = _round_up(max(lhs.shape[-1], 1), 16)
+    lhs_pad = _pad2(lhs, bv.m_pad, d_pad)
+    rhs_pad = _pad2(rhs, bv.n_pad, d_pad)
+    if spec.compressed:
+        return _c.bsr_sddmm_panel_c(
+            jnp.asarray(bv.block_offsets), jnp.asarray(bv.block_cols),
             lhs_pad, rhs_pad, jnp.asarray(bv.mask, jnp.float32),
-            mb=bv.mb, max_bpr=bv.max_bpr,
-            bm=spec.bm, bk=spec.bk, bd=bd, interpret=_interp(),
-        )
-    vals = xla_ops.sddmm(lhs, rhs, t.row_ids, t.column_indices, t.valid)
-    return values_to_panel(t, vals, spec.bm, spec.bk,
-                           compressed=spec.compressed)
+            mb=bv.mb, max_bpr=bv.max_bpr, num_blocks=bv.num_blocks,
+            bm=spec.bm, bk=spec.bk)
+    return _sddmm_mod.bsr_sddmm_batched(
+        jnp.asarray(bv.block_cols.reshape(1, -1)),
+        jnp.asarray(bv.nblocks[None]),
+        jnp.asarray(bv.mask[None], jnp.float32),
+        lhs_pad[None], rhs_pad[None])[0]
 
 
 _NEG_LARGE = -1e30
@@ -371,31 +302,12 @@ def _softmax_impl(spec, panel):
 
     ELL layout: reduce over the (slot, lane) axes directly. Compressed
     layout: rows are ragged across back-to-back blocks, so the reduction is
-    a segment reduction over the block->row-block map — on TPU two Pallas
-    passes (online stats, then per-block normalise); off-TPU through the
-    flat CSR oracle.
+    a segment reduction over the block->row-block map.
     """
     if spec.compressed:
-        t, bv = spec.topo, spec.view
-        if _use_kernels():
-            from .pallas import bsr_compressed as _c
-
-            mask_f = jnp.asarray(bv.mask, jnp.float32)
-            row_max, row_denom = _c.c_softmax_stats(
-                jnp.asarray(bv.block_offsets), panel, mask_f,
-                mb=bv.mb, max_bpr=bv.max_bpr, num_blocks=bv.num_blocks,
-                bm=spec.bm, bk=spec.bk, interpret=_interp(),
-            )
-            return _c.c_softmax_apply(
-                jnp.asarray(bv.block_rows), panel, mask_f,
-                row_max, row_denom,
-                num_blocks=bv.num_blocks, bm=spec.bm, bk=spec.bk,
-                interpret=_interp(),
-            )
-        vals = _flat(spec, panel)
-        sm = xla_ops.sparse_softmax(
-            vals, jnp.asarray(t.row_ids), jnp.asarray(t.valid), t.m)
-        return values_to_panel(t, sm, spec.bm, spec.bk, compressed=True)
+        bv = spec.view
+        return _c.c_softmax(jnp.asarray(bv.block_offsets), panel,
+                            jnp.asarray(bv.mask), mb=bv.mb)
     mask = jnp.asarray(spec.view.mask)
     v = jnp.where(mask, panel, _NEG_LARGE)
     row_max = jnp.max(v, axis=(1, 3), keepdims=True)
@@ -489,34 +401,17 @@ def _softmax_fwd(spec, panel):
 def _softmax_bwd(spec, p, g):
     spec = _spec(spec)
     if spec.compressed:
-        # g_x = p * (g - rowsum(p*g)); the ragged rowsum rides the
-        # compressed SpMM kernel against a ones column (one pass over the
-        # panel), then broadcasts back per block via a row-block take.
-        t, bv = spec.topo, spec.view
-        pg = p * g
-        if _use_kernels():
-            from .pallas import bsr_compressed as _c
-
-            ones = jnp.ones((bv.n_pad, 128), p.dtype)
-            rs_cols = _c.bsr_spmm_panel_c(
-                jnp.asarray(bv.block_offsets),
-                jnp.asarray(bv.block_cols),
-                pg, ones, jnp.zeros((bv.m_pad, 1), jnp.float32),
-                mb=bv.mb, max_bpr=bv.max_bpr, num_blocks=bv.num_blocks,
-                bm=spec.bm, bk=spec.bk, bn=128, interpret=_interp(),
-            )
-            rs_pad = rs_cols[:, 0]                        # [m_pad]
-        else:
-            flat_pg = _flat(spec, pg)
-            rs_rows = xla_ops.spmm(
-                flat_pg, t.column_indices, t.row_ids, t.m,
-                jnp.ones((t.n, 1), p.dtype))[:, 0]
-            rs_pad = jnp.zeros((bv.m_pad,), p.dtype).at[: t.m].set(rs_rows)
-        rs2d = rs_pad.reshape(bv.mb, bv.bm)
-        rs_b = jnp.take(rs2d, jnp.asarray(bv.block_rows), axis=0)[:, :, None]
-        # p is 0 at the dump slot but an undefined upstream cotangent there
-        # (0 * NaN = NaN) must not leak into the raw gradient array
-        return ((p * (g - rs_b)).at[bv.num_blocks].set(0.0),)
+        # g_x = p * (g - rowsum(p*g)); the ragged rowsum is a segment sum
+        # over the block->row-block map. p is 0 at the dump slot but an
+        # undefined upstream cotangent there (0 * NaN = NaN) must not leak
+        # into the raw gradient array
+        bv = spec.view
+        rows = jnp.asarray(bv.block_rows)
+        pg = jnp.where(jnp.asarray(bv.mask), p * g, 0.0)
+        rs = jax.ops.segment_sum(jnp.sum(pg, axis=2), rows,
+                                 num_segments=bv.mb)
+        out = p * (g - rs[rows][:, :, None])
+        return (jnp.where(jnp.asarray(bv.mask), out, 0.0),)
     pg = p * g
     rs = jnp.sum(pg, axis=(1, 3), keepdims=True)
     return (p * (g - rs),)

@@ -1,10 +1,10 @@
 """XLA (pure ``jnp``) implementations of the core sparse ops.
 
 These are the framework's *oracle* kernels: gather + segment-reduction
-formulations that compile on every backend (CPU/TPU) and serve as the
-correctness reference for the Pallas kernels, mirroring how the reference
-validates its CUDA kernels against dense torch (SURVEY.md §4). They are also
-the production path for shapes the block kernels don't cover.
+formulations that compile on every backend and serve as the independent
+correctness reference for the block ops and their kernels, mirroring how
+the reference validates its CUDA kernels against dense torch (SURVEY.md
+§4). The many-mask ``csr`` layout runs on them too.
 
 All functions operate on raw arrays using the padding conventions of
 ``topology.py``:

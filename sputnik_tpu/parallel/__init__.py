@@ -3,10 +3,10 @@
 The reference has no parallelism of any kind (SURVEY.md §2 "Parallelism /
 distribution inventory": no DP/TP/PP/SP, no NCCL/MPI — its only batching is
 a single-stream host loop, ``src/spmm_cuda.cu:48``). This package adds the
-TPU-native distribution the BASELINE north star asks for: the sparse operand
+distribution the BASELINE north star asks for: the sparse operand
 row-partitioned across devices (nnz-balanced via the row swizzle), dense
 operands replicated or column-sharded, XLA collectives (``psum`` /
-``all_gather``) over ICI inserted by ``shard_map``.
+``all_gather``) over the interconnect, inserted by ``shard_map``.
 """
 
 from .partition import RowPartition

@@ -1,30 +1,29 @@
 """Analytic communication/compute model for the sharded sparse ops.
 
 The BASELINE north star asks for a multi-chip scaling-efficiency number
-(>= 80% nnz/s on 2+ devices); real multi-chip hardware is not reachable
-from this environment, so the claim is grounded three ways (see
-``benchmarks/scaling.py`` and RESULTS.md "Scaling"):
+(>= 80% nnz/s on 2+ devices). The claim is grounded three ways (see
+``benchmarks/scaling.py``):
 
-  1. exact per-device ICI byte counts, derived from the SAME block
+  1. exact per-device link byte counts, derived from the SAME block
      metadata the kernels execute (not estimates of the algorithm — the
      actual ppermute slice sizes and psum payload shapes);
   2. this closed-form projection combining those bytes with the measured
-     single-chip kernel time and public TPU link rates;
-  3. a measured 1-chip shard_map-machinery overhead on real hardware
-     (the only part of the distribution stack that can be priced without
-     a second chip).
+     single-card kernel time and published link rates;
+  3. a measured 1-card shard_map-machinery overhead on real hardware.
 
 Collective cost conventions (standard ring algorithms, no overlap with
 compute — conservative):
 
   * ``psum`` of a ``payload``-byte buffer over ``n`` devices moves
-    ``2 * payload * (n-1)/n`` bytes through each device's ICI port
+    ``2 * payload * (n-1)/n`` bytes through each device's link
     (reduce-scatter + all-gather).
   * a sliced ``ppermute`` halo shift moves exactly its slice bytes.
   * ``all_gather`` of per-device shards moves ``payload_local * (n-1)``.
 
-Chip numbers are the public v5e figures (jax-ml.github.io/scaling-book):
-197 bf16 TFLOP/s, 819 GB/s HBM, 4.5e10 B/s one-way ICI per link.
+Card numbers are NVIDIA's published H100 SXM figures (data sheet): 989
+dense bf16 TFLOP/s, 3.35 TB/s HBM, NVLink 900 GB/s per card to the other
+cards of its host, all to all — 450 GB/s each way. The cards of one host
+are joined all to all, so a mesh axis inside a host can take any shape.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["Chip", "V5E", "psum_bytes", "all_gather_bytes",
+__all__ = ["Chip", "H100", "psum_bytes", "all_gather_bytes",
            "spmm_comm_bytes", "spmm_halo_comm_bytes",
            "attention_comm_bytes", "project_scaling",
            "project_scaling_hier", "hier_halo_dcn_bytes",
@@ -43,31 +42,31 @@ __all__ = ["Chip", "V5E", "psum_bytes", "all_gather_bytes",
 @dataclasses.dataclass(frozen=True)
 class Chip:
     name: str
-    bf16_flops: float          # peak MXU FLOP/s
+    bf16_flops: float          # peak dense tensor-core FLOP/s
     hbm_bw: float              # bytes/s
-    ici_oneway: float          # bytes/s one-way per link
+    link_oneway: float         # bytes/s one-way to the host's other cards
     # DCN (data-center network): the per-HOST egress rate shared by all
-    # of the host's chips — two orders of magnitude below aggregate ICI,
+    # of the host's cards — below the aggregate intra-host link rate,
     # which is why the hierarchical layouts below keep halo/psum traffic
-    # off it. Public scaling-book figure: 2.5e10 B/s per host (v5e),
-    # 8 chips per host.
-    dcn_host_oneway: float = 2.5e10
+    # off it. NVIDIA DGX H100 figure: 8 x 400 Gb/s compute NICs per host
+    # (4e11 B/s), 8 cards per host.
+    dcn_host_oneway: float = 4.0e11
     chips_per_host: int = 8
 
 
-V5E = Chip(name="v5e", bf16_flops=1.97e14, hbm_bw=8.19e11,
-           ici_oneway=4.5e10)
+H100 = Chip(name="h100", bf16_flops=9.89e14, hbm_bw=3.35e12,
+            link_oneway=4.5e11)
 
 
 def psum_bytes(payload_bytes: float, ndev: int) -> float:
-    """Per-device ICI bytes for one psum (ring reduce-scatter+all-gather)."""
+    """Per-device link bytes for one psum (ring reduce-scatter+all-gather)."""
     if ndev <= 1:
         return 0.0
     return 2.0 * payload_bytes * (ndev - 1) / ndev
 
 
 def all_gather_bytes(local_bytes: float, ndev: int) -> float:
-    """Per-device ICI bytes to all-gather per-device shards."""
+    """Per-device link bytes to all-gather per-device shards."""
     if ndev <= 1:
         return 0.0
     return float(local_bytes) * (ndev - 1)
@@ -78,7 +77,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 def spmm_comm_bytes(spec, q: int, *, itemsize: int = 4) -> dict:
-    """Per-device ICI bytes for ``sharded_spmm`` (replicated dense RHS).
+    """Per-device link bytes for ``sharded_spmm`` (replicated dense RHS).
 
     Forward is communication-free; the backward's dense gradient is the
     transposed product ``A^T @ G`` whose per-device partials psum to the
@@ -93,7 +92,7 @@ def spmm_comm_bytes(spec, q: int, *, itemsize: int = 4) -> dict:
 
 def spmm_halo_comm_bytes(spec, n_loc: int, q: int, *,
                          itemsize: int = 4) -> dict:
-    """Per-device ICI bytes for ``sharded_spmm_halo`` (row-sharded RHS).
+    """Per-device link bytes for ``sharded_spmm_halo`` (row-sharded RHS).
 
     Forward moves exactly the halo rows (``ShardedPanelSpec.halo_extents``,
     derived from the block metadata) via sliced ppermute shifts, or falls
@@ -117,7 +116,7 @@ def spmm_halo_comm_bytes(spec, n_loc: int, q: int, *,
 
 def attention_comm_bytes(spec, hd: int, *, kv_replicas: int = 1,
                          itemsize: int = 4) -> dict:
-    """Per-device ICI bytes for ``sparse_attention_sharded`` (and the
+    """Per-device link bytes for ``sparse_attention_sharded`` (and the
     fused ``flash_attention_sharded`` — same collective structure).
 
     Forward: none (q row-sharded, K/V replicated, scores stay local).
@@ -139,7 +138,7 @@ def attention_comm_bytes(spec, hd: int, *, kv_replicas: int = 1,
 def attention_halo_comm_bytes(spec, hd: int, n_loc: int, *,
                               kv_replicas: int = 1,
                               itemsize: int = 4) -> dict:
-    """Per-device ICI bytes for ``flash_attention_kv_sharded`` (K/V
+    """Per-device link bytes for ``flash_attention_kv_sharded`` (K/V
     key-sharded, halo-exchanged — the zero-psum variant).
 
     Forward: K and V each move their (lo, hi) halo rows via sliced
@@ -167,7 +166,7 @@ def attention_halo_comm_bytes(spec, hd: int, n_loc: int, *,
 def attention_ring_comm_bytes(n_loc: int, hd: int, ndev: int, *,
                               kv_replicas: int = 1,
                               itemsize: int = 4) -> dict:
-    """Per-device ICI bytes for ``ring_flash_attention`` (full-causal
+    """Per-device link bytes for ``ring_flash_attention`` (full-causal
     sequence parallelism).
 
     Forward: ``ndev`` rotations of the K and V bands (one per scan step;
@@ -184,7 +183,7 @@ def attention_ring_comm_bytes(n_loc: int, hd: int, ndev: int, *,
 
 
 def project_scaling(t1_ms: float, comm_bytes_per_dev: float,
-                    ndev: int, chip: Chip = V5E, *,
+                    ndev: int, chip: Chip = H100, *,
                     overlap_fraction: float = 0.0,
                     worst_device_factor: float = 1.0) -> dict:
     """Closed-form scaling projection for one op invocation.
@@ -193,8 +192,8 @@ def project_scaling(t1_ms: float, comm_bytes_per_dev: float,
     Per-device compute shrinks linearly when the partition balances nnz;
     ``worst_device_factor`` (= ``nnz_balance(part)["max_over_mean"]``,
     1.0 for a balanced/zigzag partition) scales the compute term to the
-    straggler device — SPMD steps at the slowest shard. Comm runs at one
-    ICI link's one-way rate.
+    straggler device — SPMD steps at the slowest shard. Comm runs at the
+    card's one-way link rate.
 
     ``overlap_fraction`` (``f``): the portion of the comm volume whose
     transfer is dataflow-independent of the kernels and can hide under
@@ -213,7 +212,7 @@ def project_scaling(t1_ms: float, comm_bytes_per_dev: float,
     if worst_device_factor < 1.0:
         raise ValueError(f"worst_device_factor {worst_device_factor} < 1")
     t_comp = t1_ms / ndev * worst_device_factor
-    t_comm = comm_bytes_per_dev / chip.ici_oneway * 1e3
+    t_comm = comm_bytes_per_dev / chip.link_oneway * 1e3
     t_serial = t_comp + t_comm
     t = (max(t_comp, overlap_fraction * t_comm)
          + (1.0 - overlap_fraction) * t_comm)
@@ -229,7 +228,7 @@ def project_scaling(t1_ms: float, comm_bytes_per_dev: float,
 
 
 # Structural overlap fractions per sharded path: the share of each pass's
-# ICI volume whose transfer has NO dataflow dependency on the kernels
+# link volume whose transfer has NO dataflow dependency on the kernels
 # (asserted on the traced jaxpr in tests/test_overlap.py). The exposed
 # remainder is inherent to the algebra, not the implementation:
 #   * halo paths (spmm / flash kv-sharded): every halo row is prefetched
@@ -253,14 +252,14 @@ OVERLAP_FRACTIONS = {
 
 def project_scaling_hier(t1_ms: float, ici_bytes_per_dev: float,
                          dcn_bytes_per_host: float, n_hosts: int,
-                         chip: Chip = V5E, *,
+                         chip: Chip = H100, *,
                          chips_per_host: int = 0,
                          overlap_ici: float = 0.0,
                          overlap_dcn: float = 0.0) -> dict:
     """Two-tier (N >= 2 hosts) scaling projection.
 
     Hierarchical layout assumption: the fast-changing axis (sp row
-    partition / tp heads) lives INSIDE a host on ICI; the across-host
+    partition / tp heads) lives INSIDE a host on NVLink; the across-host
     axis moves ``dcn_bytes_per_host`` through each host's shared DCN port
     per step. ``t1_ms`` is the measured single-chip time for the FULL
     problem; compute divides over all ``chips_per_host * n_hosts`` chips.
@@ -273,7 +272,7 @@ def project_scaling_hier(t1_ms: float, ici_bytes_per_dev: float,
     cph = chips_per_host or chip.chips_per_host
     n_total = cph * n_hosts
     t_comp = t1_ms / n_total
-    t_ici = ici_bytes_per_dev / chip.ici_oneway * 1e3
+    t_ici = ici_bytes_per_dev / chip.link_oneway * 1e3
     t_dcn = dcn_bytes_per_host / chip.dcn_host_oneway * 1e3
     t_serial = t_comp + t_ici + t_dcn
 
@@ -301,7 +300,7 @@ def hier_halo_dcn_bytes(halo_rows: tuple, q: int, n_hosts: int, *,
                         itemsize: int = 4) -> float:
     """Per-host DCN bytes for a contiguous row/key partition spanning
     hosts: only the shards at each host BOUNDARY exchange their halo
-    across DCN — every interior halo rides ICI. A host in a 2-host line
+    across DCN — every interior halo rides NVLink. A host in a 2-host line
     has one boundary; interior hosts of a longer line have two.
 
     This is the structural win of contiguous (banded) partitions at the

@@ -6,7 +6,7 @@ each device runs the sparse-flash kernel over its own query band's occupied
 key blocks (per-shard block metadata travels as stacked device-varying
 data), and K/V are replicated. Communication: the forward is
 communication-free; in the backward only dk/dv — partial sums over the
-globally-shared key axis — pay one ``psum`` over ICI.
+globally-shared key axis — pay one ``psum`` over the interconnect.
 
 This is the BASELINE north-star sequence scaling: each shard holds only
 its query rows' CSR slice and touches only the K/V columns its nonzeros
@@ -24,8 +24,6 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops._common import device_arrays as _device_arrays
-from ..ops._common import interp as _interp
-from ..ops._common import round_up as _round_up
 from ..ops.pallas import flash_sparse as fs
 from ..topology import SparseTopology
 from .partition import RowPartition
@@ -149,7 +147,7 @@ def _fwd_sharded(spec, q_sh, k, v, group):
             cols[0][None], nblk[0][None], slot[0][None], part[0][None],
             pmask[0][None], q[0], kk, vv,
             R=R, heads=R, mb=spec.mb, max_bpr=spec.max_bpr,
-            bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+            bm=spec.bm, bk=spec.bk, group=group)
         return out[None], m[None], l[None]
 
     fn = _smap(
@@ -169,7 +167,7 @@ def _flash_sh(spec, q_sh, k, v, scale, group):
 
 def _prep(spec, q_sh, k, v, scale):
     hd = q_sh.shape[-1]
-    hd_pad = _round_up(max(hd, 1), 128)
+    hd_pad = hd
     ndev, R = q_sh.shape[0], q_sh.shape[1]
     R_kv = k.shape[0]
     q_p = jnp.zeros((ndev, R, spec.m_pad_loc, hd_pad), q_sh.dtype)
@@ -206,55 +204,12 @@ def _flash_sh_bwd(spec, scale, group, res, g):
     dcoef = jnp.broadcast_to(
         d_rows[..., None], d_rows.shape + (128,))
 
-    # Single-pass fused backward per shard when the full-key-span dk/dv
-    # accumulators fit VMEM: one kernel produces dq AND the local dk/dv
-    # partials from ONE score recompute (no transposed-walk max_bpc
-    # padding — for causal shards that walk is maximally imbalanced);
-    # partials then psum exactly like the two-kernel path's.
-    from ..ops.fused_attention import _FUSED_BWD_ACC_BYTES
-
-    hd_pad_b = q_p.shape[-1]
-    if 2 * spec.n_pad * hd_pad_b * 4 <= _FUSED_BWD_ACC_BYTES:
-        kb_full = spec.n_pad // spec.bk
-
-        def local_fused(cols, nblk, slot, part, pmask, q, kk, vv, gg,
-                        st, dc):
-            dq, dk, dv = fs.flash_sparse_bwd_fused(
-                cols[0][None], nblk[0][None], slot[0][None],
-                part[0][None], pmask[0][None], q[0], kk, vv, gg[0],
-                st[0], dc[0],
-                R=R, heads=R, mb=spec.mb, kb=kb_full,
-                max_bpr=spec.max_bpr, bm=spec.bm, bk=spec.bk,
-                group=group, interpret=_interp())
-            dk = dk.reshape(dk.shape[0], spec.n_pad, hd_pad_b)
-            dv = dv.reshape(dv.shape[0], spec.n_pad, hd_pad_b)
-            if group > 1:
-                dk = dk.reshape(R // group, group, *dk.shape[1:]).sum(
-                    axis=1)
-                dv = dv.reshape(R // group, group, *dv.shape[1:]).sum(
-                    axis=1)
-            dk = jax.lax.psum(dk, spec.axis)
-            dv = jax.lax.psum(dv, spec.axis)
-            return dq[None], dk, dv
-
-        dq_p, dk_p, dv_p = _smap(
-            spec, local_fused,
-            in_specs=(P(x), P(x), P(x), P(x), P(x), P(x),
-                      P(None, None, None), P(None, None, None),
-                      P(x), P(x), P(x)),
-            out_specs=(P(x), P(None, None, None), P(None, None, None)),
-        )(*_meta_args(spec), q_p, k_p, v_p, g_p, stats, dcoef)
-        dq = (dq_p[:, :, : q_shape[2], :hd] * scale).astype(q_p.dtype)
-        dk = dk_p[:, : k_shape[1], :hd].astype(k_p.dtype)
-        dv = dv_p[:, : v_shape[1], :hd].astype(v_p.dtype)
-        return dq, dk, dv
-
     def local_dq(cols, nblk, slot, part, pmask, q, kk, vv, gg, st, dc):
         dq = fs.flash_sparse_bwd_dq(
             cols[0][None], nblk[0][None], slot[0][None], part[0][None],
             pmask[0][None], q[0], kk, vv, gg[0], st[0], dc[0],
             R=R, heads=R, mb=spec.mb, max_bpr=spec.max_bpr,
-            bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+            bm=spec.bm, bk=spec.bk, group=group)
         return dq[None]
 
     dq_p = _smap(
@@ -270,10 +225,10 @@ def _flash_sh_bwd(spec, scale, group, res, g):
             ti[0][None], tn[0][None], tsl[0][None], tpt[0][None],
             pmask[0][None], q[0], kk, vv, gg[0], st[0], dc[0],
             R=R, heads=R, kb=spec.kb, max_bpc=spec.max_bpc,
-            bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+            bm=spec.bm, bk=spec.bk, group=group)
         if group > 1:
             # per-query-replica partials -> shared KV replica grads,
-            # summed LOCALLY before the psum (ICI payload shrinks by
+            # summed LOCALLY before the psum (the payload shrinks by
             # the group factor too)
             dk = dk.reshape(R // group, group, *dk.shape[1:]).sum(axis=1)
             dv = dv.reshape(R // group, group, *dv.shape[1:]).sum(axis=1)
@@ -421,7 +376,7 @@ def _fwd_sharded_kv(spec, q_p, kbuf, vbuf, group):
             cols[0][None], nblk[0][None], slot[0][None], part[0][None],
             pmask[0][None], q[0], kk[0], vv[0],
             R=R, heads=R, mb=spec.mb, max_bpr=spec.max_bpr,
-            bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+            bm=spec.bm, bk=spec.bk, group=group)
         return out[None], m[None], l[None]
 
     fn = _smap(
@@ -455,47 +410,13 @@ def _flash_sh_kv_bwd(spec, scale, group, res, g):
     dcoef = jnp.broadcast_to(d_rows[..., None], d_rows.shape + (128,))
 
     sh = (P(x),) * 5
-    from ..ops.fused_attention import _FUSED_BWD_ACC_BYTES
-
-    hd_pad_b = q_p.shape[-1]
-    if 2 * spec.n_pad * hd_pad_b * 4 <= _FUSED_BWD_ACC_BYTES:
-        # single-pass fused backward per shard: dq + dk/dv partials from
-        # one score recompute, no transposed-walk max_bpc padding. dk/dv
-        # stay UN-psummed in globally-indexed buffer coords — the halo
-        # assembly's VJP (outside this custom_vjp) sums overlapping halo
-        # contributions via reverse ppermutes, exactly as before.
-        def local_fused(cols, nblk, slot, part, pmask, q, kk, vv, gg,
-                        st, dc):
-            dq, dk, dv = fs.flash_sparse_bwd_fused(
-                cols[0][None], nblk[0][None], slot[0][None],
-                part[0][None], pmask[0][None], q[0], kk[0], vv[0],
-                gg[0], st[0], dc[0],
-                R=R, heads=R, mb=spec.mb, kb=spec.kb,
-                max_bpr=spec.max_bpr, bm=spec.bm, bk=spec.bk,
-                group=group, interpret=_interp())
-            dk = dk.reshape(dk.shape[0], spec.n_pad, hd_pad_b)
-            dv = dv.reshape(dv.shape[0], spec.n_pad, hd_pad_b)
-            if group > 1:
-                dk = dk.reshape(R // group, group, *dk.shape[1:]).sum(
-                    axis=1)
-                dv = dv.reshape(R // group, group, *dv.shape[1:]).sum(
-                    axis=1)
-            return dq[None], dk[None], dv[None]
-
-        dq_p, dk_b, dv_b = _smap(
-            spec, local_fused,
-            in_specs=sh + (P(x), P(x), P(x), P(x), P(x), P(x)),
-            out_specs=(P(x), P(x), P(x)),
-        )(*_meta_args(spec), q_p, kbuf, vbuf, g, stats, dcoef)
-        return dq_p.astype(q_p.dtype), dk_b.astype(kbuf.dtype), \
-            dv_b.astype(vbuf.dtype)
 
     def local_dq(cols, nblk, slot, part, pmask, q, kk, vv, gg, st, dc):
         dq = fs.flash_sparse_bwd_dq(
             cols[0][None], nblk[0][None], slot[0][None], part[0][None],
             pmask[0][None], q[0], kk[0], vv[0], gg[0], st[0], dc[0],
             R=R, heads=R, mb=spec.mb, max_bpr=spec.max_bpr,
-            bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+            bm=spec.bm, bk=spec.bk, group=group)
         return dq[None]
 
     dq_p = _smap(
@@ -509,7 +430,7 @@ def _flash_sh_kv_bwd(spec, scale, group, res, g):
             ti[0][None], tn[0][None], tsl[0][None], tpt[0][None],
             pmask[0][None], q[0], kk[0], vv[0], gg[0], st[0], dc[0],
             R=R, heads=R, kb=spec.kb, max_bpc=spec.max_bpc,
-            bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+            bm=spec.bm, bk=spec.bk, group=group)
         if group > 1:
             dk = dk.reshape(R // group, group, *dk.shape[1:]).sum(axis=1)
             dv = dv.reshape(R // group, group, *dv.shape[1:]).sum(axis=1)
@@ -558,7 +479,7 @@ def flash_attention_kv_sharded(spec: ShardedFlashSpec, q_sh, k_sh, v_sh,
     blocks (computed from the LOCAL K/V, no comm) and halo blocks (a
     second small kernel pass over only the exchanged rows), merged by the
     online-softmax rule — the halo ppermutes and the interior kernel have
-    no serializing dependency, so the transfer streams while the MXU
+    no serializing dependency, so the transfer streams while the kernel
     works (see the module-level OVERLAP section)."""
     ndev, R = q_sh.shape[0], q_sh.shape[1]
     R_kv = k_sh.shape[1]
@@ -578,7 +499,7 @@ def flash_attention_kv_sharded(spec: ShardedFlashSpec, q_sh, k_sh, v_sh,
     if k_sh.shape[2] > n_loc:
         raise ValueError(f"per-device key rows {k_sh.shape[2]} > {n_loc}")
     hd = q_sh.shape[-1]
-    hd_pad = _round_up(max(hd, 1), 128)
+    hd_pad = hd
     # Python float (weak type): a np.float64 scalar would promote the
     # f32 q under x64 and warn/copy on the padded .set
     scale = float(scale) if scale is not None else float(hd) ** -0.5
@@ -621,7 +542,7 @@ def flash_attention_kv_sharded(spec: ShardedFlashSpec, q_sh, k_sh, v_sh,
 # the interior flash kernel depends only on the local shard — the compiled
 # program has NO serializing dependency between the collective and the
 # interior kernel (tests/test_overlap.py asserts this on the jaxpr), so
-# XLA's async collectives can stream the halo while the MXU works. A
+# XLA's async collectives can stream the halo while the kernel works. A
 # second, small kernel pass over only the halo blocks consumes the
 # arrived rows, and the two partial softmaxes merge by the online rule
 # (same math as ring_flash's cross-band merge). The backward splits the
@@ -774,13 +695,13 @@ def _ov_fwd(spec, n_loc, group, q_p, k_loc, kbuf, v_loc, vbuf):
             md["i_mask_slot"][0][None], md["i_is_partial"][0][None],
             md["i_pmask"][0][None], q0, kl[0], vl[0],
             R=R, heads=R, mb=spec.mb, max_bpr=st["i"]["max_bpr"],
-            bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+            bm=spec.bm, bk=spec.bk, group=group)
         out_h, m_h, l_h = fs.flash_sparse_attention_fwd(
             md["h_block_cols"][0][None], md["h_nblocks"][0][None],
             md["h_mask_slot"][0][None], md["h_is_partial"][0][None],
             md["h_pmask"][0][None], q0, kb_[0], vb[0],
             R=R, heads=R, mb=spec.mb, max_bpr=st["h"]["max_bpr"],
-            bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+            bm=spec.bm, bk=spec.bk, group=group)
         out, M, L = _ov_merge(out_i, m_i, l_i, out_h, m_h, l_h)
         return out[None], M[None], L[None]
 
@@ -815,67 +736,36 @@ def _flash_kv_ov_bwd(spec, n_loc, group, res, g):
     d_rows = jnp.sum(g * out, axis=-1)
     dcoef = jnp.broadcast_to(d_rows[..., None], d_rows.shape + (128,))
 
-    from ..ops.fused_attention import _FUSED_BWD_ACC_BYTES
-
-    hd_pad_b = q_p.shape[-1]
-    kb_i = st["kb_i"]
-    use_fused = (2 * (kb_i + spec.kb) * spec.bk * hd_pad_b * 4
-                 <= _FUSED_BWD_ACC_BYTES)
-
     def local(*args):
         md = dict(zip(keys, args[: len(keys)]))
         q, kl, kb_, vl, vb, gg, stt, dc = args[len(keys):]
         q0, g0, st0, dc0 = q[0], gg[0], stt[0], dc[0]
-        if use_fused:
-            # one fused pass per sub-topology (interior, halo): dq sums,
-            # dk/dv come back per respective K/V buffer — 2 kernels
-            # instead of 4, no transposed-walk padding
-            dq, dk_l, dv_l = fs.flash_sparse_bwd_fused(
-                md["i_block_cols"][0][None], md["i_nblocks"][0][None],
-                md["i_mask_slot"][0][None], md["i_is_partial"][0][None],
-                md["i_pmask"][0][None], q0, kl[0], vl[0], g0, st0, dc0,
-                R=R, heads=R, mb=spec.mb, kb=kb_i,
-                max_bpr=st["i"]["max_bpr"], bm=spec.bm, bk=spec.bk,
-                group=group, interpret=_interp())
-            dq2, dk_b, dv_b = fs.flash_sparse_bwd_fused(
-                md["h_block_cols"][0][None], md["h_nblocks"][0][None],
-                md["h_mask_slot"][0][None], md["h_is_partial"][0][None],
-                md["h_pmask"][0][None], q0, kb_[0], vb[0], g0, st0, dc0,
-                R=R, heads=R, mb=spec.mb, kb=spec.kb,
-                max_bpr=st["h"]["max_bpr"], bm=spec.bm, bk=spec.bk,
-                group=group, interpret=_interp())
-            dq = dq + dq2
-            dk_l = dk_l.reshape(dk_l.shape[0], kb_i * spec.bk, hd_pad_b)
-            dv_l = dv_l.reshape(dv_l.shape[0], kb_i * spec.bk, hd_pad_b)
-            dk_b = dk_b.reshape(dk_b.shape[0], spec.n_pad, hd_pad_b)
-            dv_b = dv_b.reshape(dv_b.shape[0], spec.n_pad, hd_pad_b)
-        else:
-            dq = fs.flash_sparse_bwd_dq(
-                md["i_block_cols"][0][None], md["i_nblocks"][0][None],
-                md["i_mask_slot"][0][None], md["i_is_partial"][0][None],
-                md["i_pmask"][0][None], q0, kl[0], vl[0], g0, st0, dc0,
-                R=R, heads=R, mb=spec.mb, max_bpr=st["i"]["max_bpr"],
-                bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
-            dq = dq + fs.flash_sparse_bwd_dq(
-                md["h_block_cols"][0][None], md["h_nblocks"][0][None],
-                md["h_mask_slot"][0][None], md["h_is_partial"][0][None],
-                md["h_pmask"][0][None], q0, kb_[0], vb[0], g0, st0, dc0,
-                R=R, heads=R, mb=spec.mb, max_bpr=st["h"]["max_bpr"],
-                bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
-            dk_l, dv_l = fs.flash_sparse_bwd_dkv(
-                md["i_t_src_i"][0][None], md["i_t_nblocks"][0][None],
-                md["i_t_mask_slot"][0][None],
-                md["i_t_is_partial"][0][None],
-                md["i_pmask"][0][None], q0, kl[0], vl[0], g0, st0, dc0,
-                R=R, heads=R, kb=st["kb_i"], max_bpc=st["i"]["max_bpc"],
-                bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
-            dk_b, dv_b = fs.flash_sparse_bwd_dkv(
-                md["h_t_src_i"][0][None], md["h_t_nblocks"][0][None],
-                md["h_t_mask_slot"][0][None],
-                md["h_t_is_partial"][0][None],
-                md["h_pmask"][0][None], q0, kb_[0], vb[0], g0, st0, dc0,
-                R=R, heads=R, kb=spec.kb, max_bpc=st["h"]["max_bpc"],
-                bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+        dq = fs.flash_sparse_bwd_dq(
+            md["i_block_cols"][0][None], md["i_nblocks"][0][None],
+            md["i_mask_slot"][0][None], md["i_is_partial"][0][None],
+            md["i_pmask"][0][None], q0, kl[0], vl[0], g0, st0, dc0,
+            R=R, heads=R, mb=spec.mb, max_bpr=st["i"]["max_bpr"],
+            bm=spec.bm, bk=spec.bk, group=group)
+        dq = dq + fs.flash_sparse_bwd_dq(
+            md["h_block_cols"][0][None], md["h_nblocks"][0][None],
+            md["h_mask_slot"][0][None], md["h_is_partial"][0][None],
+            md["h_pmask"][0][None], q0, kb_[0], vb[0], g0, st0, dc0,
+            R=R, heads=R, mb=spec.mb, max_bpr=st["h"]["max_bpr"],
+            bm=spec.bm, bk=spec.bk, group=group)
+        dk_l, dv_l = fs.flash_sparse_bwd_dkv(
+            md["i_t_src_i"][0][None], md["i_t_nblocks"][0][None],
+            md["i_t_mask_slot"][0][None],
+            md["i_t_is_partial"][0][None],
+            md["i_pmask"][0][None], q0, kl[0], vl[0], g0, st0, dc0,
+            R=R, heads=R, kb=st["kb_i"], max_bpc=st["i"]["max_bpc"],
+            bm=spec.bm, bk=spec.bk, group=group)
+        dk_b, dv_b = fs.flash_sparse_bwd_dkv(
+            md["h_t_src_i"][0][None], md["h_t_nblocks"][0][None],
+            md["h_t_mask_slot"][0][None],
+            md["h_t_is_partial"][0][None],
+            md["h_pmask"][0][None], q0, kb_[0], vb[0], g0, st0, dc0,
+            R=R, heads=R, kb=spec.kb, max_bpc=st["h"]["max_bpc"],
+            bm=spec.bm, bk=spec.bk, group=group)
         if group > 1:
             gsum = lambda a: a.reshape(                     # noqa: E731
                 R // group, group, *a.shape[1:]).sum(axis=1)

@@ -2,9 +2,9 @@
 
 Each device owns an equal-row-count shard of the matrix; because SPMD traces
 one program for every device, per-shard topology metadata is *stacked data*
-(``[ndev, ...]`` arrays sharded over the mesh axis and scalar-prefetched by
-the kernels), not per-device Python constants — the TPU-native replacement
-for the per-GPU topologies a CUDA framework would hold.
+(``[ndev, ...]`` arrays sharded over the mesh axis and read by the
+kernels), not per-device Python constants — the SPMD replacement for the
+per-GPU topologies a CUDA framework would hold.
 
 Load balance: nnz skew across equal row chunks is flattened by an optional
 row *permutation* built from the row swizzle (longest-first round-robin over

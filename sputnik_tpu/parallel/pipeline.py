@@ -4,7 +4,7 @@ The reference has no distribution layer of any kind (SURVEY.md §2
 "Parallelism inventory — none"); this module adds the pipeline axis to the
 framework's mesh vocabulary (dp x tp x sp x pp x ep).
 
-Design (the standard TPU pipelining idiom — collective-permute shifts on
+Design (the standard SPMD pipelining idiom — collective-permute shifts on
 a ring, one stage per device, compiler-friendly ``lax.scan`` over the
 schedule):
 

@@ -23,7 +23,7 @@ a full cycle) — no psum anywhere.
 Sparsity: the per-(shard, band) block metadata is built once on the host
 by column-slicing each query shard's CSR to the band (rebased block
 columns), so strictly-empty pairs (future bands under causality) cost one
-fully-predicated kernel pass and no DMA.
+kernel pass whose programs all exit at once.
 """
 
 from __future__ import annotations
@@ -36,9 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops._common import round_up as _round_up
 from ..ops._common import device_arrays as _device_arrays
-from ..ops._common import interp as _interp
 from ..ops.pallas import flash_sparse as fs
 from ..topology import SparseTopology
 from .partition import RowPartition
@@ -194,8 +192,7 @@ class RingFlashSpec:
         """``x [R, s, hd]`` -> ``[ndev, R, n_total//ndev, hd]``; zigzag =
         two contiguous chunks per device (chunk ``d`` + mirror
         ``2*ndev-1-d``) — reshapes and one axis reverse, never an
-        element gather (TPU gathers on the value layout are the
-        catastrophic path)."""
+        element gather on the value layout."""
         ndev = self.part.ndev
         R, s, hd = x.shape
         xp = jnp.zeros((R, n_total, hd), x.dtype).at[:, :s].set(x)
@@ -294,12 +291,9 @@ def _ring_fwd_local(spec, group, meta_loc, q, k0, v0):
     k0/v0 [1, R_kv, n_loc, hd_pad] (own band). Returns (out, M, L)
     local plus nothing rotated (bands return home).
 
-    One ring step = ONE ``pallas_call``: the carry kernel
-    (``flash_sparse_ring_band_fwd``) continues the online softmax across
-    bands in-kernel on an in-place (aliased) unnormalised accumulator +
-    packed stats — no per-step XLA merge passes and no per-step
-    ``dynamic_index`` metadata copies (the band index is scalar-
-    prefetched into the block index maps)."""
+    Each ring step runs the flash forward over the current band
+    (``flash_sparse_ring_band_fwd``) and folds it into the carried
+    unnormalised accumulator + packed stats by the online-softmax merge."""
     x = spec.axis
     ndev = spec.part.ndev
     d = jax.lax.axis_index(x)
@@ -315,7 +309,7 @@ def _ring_fwd_local(spec, group, meta_loc, q, k0, v0):
         # the ppermutes read only the carry (never the kernel output), so
         # the compiled program has no serializing dependency between the
         # collective and the flash kernel — XLA's async collectives can
-        # put the transfer in flight while the MXU works
+        # put the transfer in flight while the kernel works
         # (tests/test_overlap.py asserts the dataflow independence).
         k_nxt = jax.lax.ppermute(k_cur, x, fwd)
         v_nxt = jax.lax.ppermute(v_cur, x, fwd)
@@ -326,7 +320,7 @@ def _ring_fwd_local(spec, group, meta_loc, q, k0, v0):
             meta_loc["pmask"][0],
             q0, k_cur, v_cur, acc, st,
             R=R, mb=spec.mb, max_bpr=spec.max_bpr,
-            bm=spec.bm, bk=spec.bk, group=group, interpret=_interp())
+            bm=spec.bm, bk=spec.bk, group=group)
         return (k_nxt, v_nxt, acc, st), None
 
     st0 = jnp.zeros((R, spec.m_pad_loc, 128), jnp.float32)
@@ -406,8 +400,6 @@ def _ring_b(spec, group, res, g):
         q0, g0, st0, dc0 = q[0], gg[0], st[0], dc[0]
         fwd_perm = [(j, (j + 1) % ndev) for j in range(ndev)]
 
-        kb_loc = spec.n_loc // spec.bk
-
         def step(carry, t):
             k_cur, v_cur, dk_cur, dv_cur, dq_acc = carry
             band = jax.lax.rem(d - t + ndev, ndev)
@@ -418,47 +410,26 @@ def _ring_b(spec, group, res, g):
             # factors: ring bwd is half-overlappable).
             k_nxt = jax.lax.ppermute(k_cur, x, fwd_perm)
             v_nxt = jax.lax.ppermute(v_cur, x, fwd_perm)
-            if group == 1:
-                # one ring-backward step = ONE kernel: all three
-                # gradient carries advance in place (aliased), band
-                # metadata scalar-prefetched from the stacked tables
-                dq_acc, dk_cur, dv_cur = fs.flash_sparse_ring_band_bwd(
-                    band[None].astype(jnp.int32),
-                    meta_loc["block_cols"][0], meta_loc["nblocks"][0],
-                    meta_loc["mask_slot"][0],
-                    meta_loc["is_partial_"][0], meta_loc["pmask"][0],
-                    q0, k_cur, v_cur, g0, st0, dc0,
-                    dq_acc,
-                    dk_cur.reshape(R, kb_loc, spec.bk, hd_pad),
-                    dv_cur.reshape(R, kb_loc, spec.bk, hd_pad),
-                    R=R, mb=spec.mb, kb=kb_loc,
-                    max_bpr=spec.max_bpr, bm=spec.bm, bk=spec.bk,
-                    interpret=_interp())
-                dk_cur = dk_cur.reshape(R, spec.n_loc, hd_pad)
-                dv_cur = dv_cur.reshape(R, spec.n_loc, hd_pad)
-            else:
-                mt = _band_take(meta_loc, band)
-                dq_t = fs.flash_sparse_bwd_dq(
-                    mt["block_cols"], mt["nblocks"], mt["mask_slot"],
-                    mt["is_partial_"], mt["pmask"],
-                    q0, k_cur, v_cur, g0, st0, dc0,
-                    R=R, heads=R, mb=spec.mb, max_bpr=spec.max_bpr,
-                    bm=spec.bm, bk=spec.bk, group=group,
-                    interpret=_interp())
-                dk_t, dv_t = fs.flash_sparse_bwd_dkv(
-                    mt["t_src_i"], mt["t_nblocks"], mt["t_mask_slot"],
-                    mt["t_is_partial"], mt["pmask"],
-                    q0, k_cur, v_cur, g0, st0, dc0,
-                    R=R, heads=R, kb=spec.kb_loc, max_bpc=spec.max_bpc,
-                    bm=spec.bm, bk=spec.bk, group=group,
-                    interpret=_interp())
-                dk_t = dk_t.reshape(R // group, group,
-                                    *dk_t.shape[1:]).sum(axis=1)
-                dv_t = dv_t.reshape(R // group, group,
-                                    *dv_t.shape[1:]).sum(axis=1)
-                dk_cur = dk_cur + dk_t
-                dv_cur = dv_cur + dv_t
-                dq_acc = dq_acc + dq_t
+            mt = _band_take(meta_loc, band)
+            dq_t = fs.flash_sparse_bwd_dq(
+                mt["block_cols"], mt["nblocks"], mt["mask_slot"],
+                mt["is_partial_"], mt["pmask"],
+                q0, k_cur, v_cur, g0, st0, dc0,
+                R=R, heads=R, mb=spec.mb, max_bpr=spec.max_bpr,
+                bm=spec.bm, bk=spec.bk, group=group)
+            dk_t, dv_t = fs.flash_sparse_bwd_dkv(
+                mt["t_src_i"], mt["t_nblocks"], mt["t_mask_slot"],
+                mt["t_is_partial"], mt["pmask"],
+                q0, k_cur, v_cur, g0, st0, dc0,
+                R=R, heads=R, kb=spec.kb_loc, max_bpc=spec.max_bpc,
+                bm=spec.bm, bk=spec.bk, group=group)
+            dk_t = dk_t.reshape(R // group, group,
+                                *dk_t.shape[1:]).sum(axis=1)
+            dv_t = dv_t.reshape(R // group, group,
+                                *dv_t.shape[1:]).sum(axis=1)
+            dk_cur = dk_cur + dk_t
+            dv_cur = dv_cur + dv_t
+            dq_acc = dq_acc + dq_t
             # rotate the accumulated gradient with its band — after the
             # full cycle each band's dk/dv is home
             dk_nxt = jax.lax.ppermute(dk_cur, x, fwd_perm)
@@ -517,7 +488,7 @@ def ring_flash_attention(spec: RingFlashSpec, q_sh, k_sh, v_sh,
             f"per-device key rows {k_sh.shape[2]} != band {spec.n_loc}; "
             "pad the sequence to n_pad globally, then shard")
     hd = q_sh.shape[-1]
-    hd_pad = _round_up(max(hd, 1), 128)
+    hd_pad = hd
     scale = float(scale) if scale is not None else float(hd) ** -0.5
 
     q_p = jnp.zeros((ndev, R, spec.m_pad_loc, hd_pad), q_sh.dtype)

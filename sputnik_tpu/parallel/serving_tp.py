@@ -20,7 +20,8 @@ Megatron-style over a device mesh axis —
   * LayerNorm parameters are replicated (stacked per shard).
 
 Everything runs inside ONE ``jax.shard_map`` per call, so a decode step
-costs exactly 2 ``psum``s per layer over ICI; the KV cache never moves.
+costs exactly 2 ``psum``s per layer over the interconnect; the KV cache
+never moves.
 
 Per-shard compute reuses ``SparseDecoder`` itself, constructed over a
 "local view" of the model (``heads/tp`` heads, same full hidden size) —
@@ -251,10 +252,10 @@ class TPDecoder:
             tuple(act_spec for _ in range(n_extra_rep)) + \
             (jax.tree.map(lambda _: cache_spec, caches),)
         out_specs = (y_spec, jax.tree.map(lambda _: cache_spec, caches))
-        # check_vma=False: the local body runs Pallas kernels on real
-        # TPUs, whose out_shape ShapeDtypeStructs carry no vma — the
-        # default check rejects them (found by the TPU ndev=1 dryrun;
-        # CPU runs take the oracle path and never hit it)
+        # check_vma=False: the local body runs Pallas kernels on the GPU,
+        # whose out_shape ShapeDtypeStructs carry no vma — the default
+        # check rejects them (CPU runs take the plain path and never hit
+        # it)
         return jax.shard_map(fn, mesh=self.mesh, in_specs=in_specs,
                              out_specs=out_specs, check_vma=False)
 

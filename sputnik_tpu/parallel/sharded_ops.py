@@ -4,19 +4,19 @@ Sharding layout (the BASELINE north-star design, SURVEY.md §5):
 
   * sparse operand: row-partitioned — device ``d`` owns ``RowPartition``
     shard ``d`` (its panel values + block metadata, all device-varying
-    *data*, scalar-prefetched into the kernels);
+    *data* the kernels read per program);
   * dense RHS / LHS activations: replicated (column-sharding composes on
     top via the outer ``jit`` sharding of the dense operand);
   * collectives: ``spmm`` and row-wise ``softmax``/``sddmm`` are
     communication-free (outputs stay row-sharded); only the transposed
-    product (``A^T @ G`` — the dense gradient) ends in a ``psum`` over ICI.
+    product (``A^T @ G`` — the dense gradient) ends in a ``psum`` over the interconnect.
 
 Everything is differentiable: each op is a ``jax.custom_vjp`` whose
 backward composes the same sharded kernels (same algebra as
 ``ops/panel_api.py``), so a whole training step stays inside one
 ``shard_map``-friendly ``jit``.
 
-Off-TPU the same code paths run with kernels in interpret mode — the unit
+On the CPU the same code paths run the kernels' plain versions — the unit
 suite exercises the full sharded algebra on an 8-device CPU mesh.
 """
 
@@ -30,7 +30,6 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops._common import interp as _interp
 from ..ops._common import device_arrays as _device_arrays
 from ..ops._common import round_up as _round_up
 from ..ops._common import tile_n as _tile_n
@@ -65,7 +64,7 @@ class ShardedPanelSpec:
         self.bm, self.bk = bm, bk
         self.mesh, self.axis = mesh, axis
         # one implementation of the stacked-metadata convention
-        # (repeat-padded slots -> Pallas index maps revisit, DMA skipped):
+        # (repeat-padded slots stay inside the walked row):
         # blocking.stack_block_meta over the per-shard views
         from ..blocking import stack_block_meta
 
@@ -154,16 +153,14 @@ def _local_spmm(spec, cols, nblk, panel, dense, q_pad):
         jnp.zeros((spec.m_pad_loc, 1), jnp.float32),
         mb=spec.mb, max_bpr=spec.max_bpr, kb=spec.kb,
         bm=spec.bm, bk=spec.bk, bn=_tile_n(q_pad),
-        interpret=_interp(),
     )[None]
 
 
-def _local_spmm_t(spec, ti, ts, tn, panel, g, q_pad):
+def _local_spmm_t(spec, ti, ts, tn, panel, g):
     out = _spmm_t_mod.bsr_spmm_t_panel(
         ti[0], ts[0], tn[0], panel[0], g[0],
         kb=spec.kb, max_bpc=spec.max_bpc, mb=spec.mb,
-        bm=spec.bm, bk=spec.bk, bq=_tile_n(q_pad),
-        interpret=_interp(),
+        bm=spec.bm, bk=spec.bk,
     )
     return jax.lax.psum(out, spec.axis)[None]
 
@@ -173,7 +170,6 @@ def _local_sddmm(spec, cols, nblk, mask, lhs, rhs, d_pad):
         cols[0], nblk[0], lhs[0], rhs, mask[0],
         mb=spec.mb, max_bpr=spec.max_bpr,
         bm=spec.bm, bk=spec.bk, bd=min(d_pad, 128),
-        interpret=_interp(),
     )[None]
 
 
@@ -221,19 +217,16 @@ def _raw_spmm(spec, panels, dense):
 def _raw_spmm_t(spec, panels, g_sh):
     """A^T @ G with G row-sharded [ndev, m_loc, q]; returns the replicated
     [n_pad, q] sum (psum over the mesh axis). ``g_sh`` is padded here to
-    (m_pad_loc, multiple-of-128) — a raw caller passing the natural shape
-    must not silently leave trailing column tiles unwritten (the grid is
-    ``q_pad // bq``)."""
+    (m_pad_loc, multiple-of-128)."""
     q = g_sh.shape[-1]
     g_sh = _pad3(spec, g_sh)
-    q_pad = g_sh.shape[-1]
     ti = _spec_meta(spec)["t_src_i"]
     ts = _spec_meta(spec)["t_src_s"]
     tn = _spec_meta(spec)["t_nblocks"]
     x = spec.axis
     fn = _smap(
         spec,
-        lambda a, b, c, p, g: _local_spmm_t(spec, a, b, c, p, g, q_pad),
+        lambda a, b, c, p, g: _local_spmm_t(spec, a, b, c, p, g),
         in_specs=(P(x), P(x), P(x), P(x), P(x)),
         out_specs=P(x),
     )
@@ -441,14 +434,13 @@ def _halo_assemble(spec, d_loc, n_loc, q_pad, lo, hi, *,
     return buf
 
 
-def _local_spmm_t_nopsum(spec, ti, ts, tn, panel, g, q_pad):
+def _local_spmm_t_nopsum(spec, ti, ts, tn, panel, g):
     """Per-device partial ``A_d^T @ G_d`` WITHOUT the psum (the ragged halo
     backward reduces it over the halo paths instead)."""
     return _spmm_t_mod.bsr_spmm_t_panel(
         ti[0], ts[0], tn[0], panel[0], g[0],
         kb=spec.kb, max_bpc=spec.max_bpc, mb=spec.mb,
-        bm=spec.bm, bk=spec.bk, bq=_tile_n(q_pad),
-        interpret=_interp(),
+        bm=spec.bm, bk=spec.bk,
     )
 
 
@@ -512,7 +504,7 @@ def _ov_split_meta(spec, n_loc):
                 for s, (c, sl) in enumerate(r):
                     cols[d, i, s] = c
                     sel[d, i, s] = sl
-                if 0 < len(r) < maxb:      # repeat-pad: DMA elided
+                if 0 < len(r) < maxb:      # repeat-pad the last valid slot
                     cols[d, i, len(r):] = cols[d, i, len(r) - 1]
                     sel[d, i, len(r):] = sel[d, i, len(r) - 1]
         return {"cols": cols.reshape(ndev, -1),
@@ -562,7 +554,7 @@ def _raw_spmm_halo(spec, panels, dense_sh):
         # comm/compute-overlap split: the halo ppermutes feed ONLY the
         # halo pass; the interior pass reads the local shard — no
         # serializing dependency between the transfer and the interior
-        # MXU work (tests/test_overlap.py asserts this on the jaxpr).
+        # kernel work (tests/test_overlap.py asserts this on the jaxpr).
         meta = _ov_spmm_dev_meta(spec, n_loc)
         st = _ov_split_meta(spec, n_loc)
 
@@ -576,13 +568,11 @@ def _raw_spmm_halo(spec, panels, dense_sh):
             out_i = _spmm_mod.bsr_spmm_panel_sel(
                 ci[0], ni[0], si[0], p[0], d2,
                 mb=spec.mb, max_bpr=st["i"]["maxb"],
-                bm=spec.bm, bk=spec.bk, bn=_tile_n(q_pad),
-                interpret=_interp())
+                bm=spec.bm, bk=spec.bk, bn=_tile_n(q_pad))
             out_h = _spmm_mod.bsr_spmm_panel_sel(
                 ch[0], nh[0], sh_[0], p[0], buf[: spec.n_pad],
                 mb=spec.mb, max_bpr=st["h"]["maxb"],
-                bm=spec.bm, bk=spec.bk, bn=_tile_n(q_pad),
-                interpret=_interp())
+                bm=spec.bm, bk=spec.bk, bn=_tile_n(q_pad))
             return (out_i + out_h)[None]
 
         fn = _smap(
@@ -650,9 +640,8 @@ def _sh_spmm_halo_bwd(spec, res, g):
             c[0], nb[0], g_loc[0], ext[: spec.n_pad], mk[0],
             mb=spec.mb, max_bpr=spec.max_bpr,
             bm=spec.bm, bk=spec.bk, bd=min(q_pad, 128),
-            interpret=_interp(),
         )
-        d_full = _local_spmm_t_nopsum(spec, a, b, t, p, g_loc, q_pad)
+        d_full = _local_spmm_t_nopsum(spec, a, b, t, p, g_loc)
         d_ext = jnp.zeros_like(ext)
         d_ext = jax.lax.dynamic_update_slice(d_ext, d_full, (0, 0))
         (d_d2,) = vjp_fn(d_ext)

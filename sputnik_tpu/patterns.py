@@ -4,14 +4,14 @@ Capability parity with the reference's fixture generators
 (``tests/connectors.py``, ``tests/initializers.py``): a ``uniform`` connector
 that zeroes a fraction of entries (rounding the surviving nonzero count up to
 a multiple, which the reference uses for CUDA vector-width alignment and we
-keep for TPU lane alignment), plus ``uniform``/``arange`` value initializers.
+keep for vector alignment), plus ``uniform``/``arange`` value initializers.
 Written RNG-first (explicit ``numpy.random.Generator``) instead of the
 reference's global-state classes so tests are deterministic by construction.
 
 Also provides the structured mask builders used by the attention models:
 random uniform masks (``modules/sparse_attention.py:25-36``), causal masks
-(``tests/transformer/driver.py:8-14``), and block-local masks (a TPU-friendly
-structured pattern the block-CSR kernels excel at).
+(``tests/transformer/driver.py:8-14``), and block-local masks (a structured
+pattern the block-CSR kernels excel at).
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ def causal_mask(s: int, *, band: Optional[int] = None) -> np.ndarray:
 
 
 def local_window_mask(s: int, window: int) -> np.ndarray:
-    """Symmetric local-attention window (block-structured; MXU-friendly)."""
+    """Symmetric local-attention window (block-structured)."""
     i = np.arange(s)[:, None]
     j = np.arange(s)[None, :]
     return (np.abs(i - j) < window).astype(np.float32)
@@ -140,7 +140,8 @@ def block_random_mask(
     """Random BLOCK-structured 0/1 mask: whole ``(bm, bk)`` tiles are on or
     off, so the block-CSR kernels' time scales with the density instead of
     running dense FLOPs through ~1.0 block occupancy (the fate of
-    element-random patterns at MXU tile sizes — ``benchmarks/structured.py``).
+    element-random patterns at kernel tile sizes —
+    ``benchmarks/structured.py``).
 
     ``balanced=True`` gives every block-row the same number of occupied
     blocks (``round(density * kb)``), which is also the panel layout's

@@ -13,12 +13,12 @@ the reference framework's four-array convention (Torch-Sputnik,
                                    (the reference calls this ``row_indices`` /
                                    ``diffsort``, ``modules/spmm.py:4-6``)
 
-TPU-first design decisions (vs. the reference's CUDA layout):
+Design decisions (vs. the reference's CUDA layout):
 
   * **Static shapes.** XLA compiles fixed shapes, so ``nnz`` is padded up to a
     static ``nnz_pad`` (a multiple of ``pad_to``; the reference rounds nnz to
-    multiples of 4 for CUDA vector loads, ``tests/connectors.py:49-52`` — on
-    TPU we default to the 128-lane width). Padding slots carry
+    multiples of 4 for CUDA vector loads, ``tests/connectors.py:49-52``, and
+    so do we by default). Padding slots carry
     ``column == 0`` and an out-of-range expanded row id (``row == m``) so
     every op drops them structurally — no runtime masks on the hot path.
   * **Expanded row ids.** ``row_ids: i32[nnz_pad]`` (the COO row of each
@@ -32,7 +32,7 @@ TPU-first design decisions (vs. the reference's CUDA layout):
     topology is fixed, so the transpose permutation is precomputed at build
     time and the hot-path transpose is a single gather (the reference pays a
     cuSPARSE ``Csr2cscEx2`` call per backward, ``src/transpose_cuda.cu:90-99``).
-  * **Block-CSR view.** ``topology.block(bm, bk)`` derives an MXU-tile-level
+  * **Block-CSR view.** ``topology.block(bm, bk)`` derives a tile-level
     block-sparse view (see ``blocking.py``) consumed by the Pallas kernels.
 """
 
@@ -50,9 +50,9 @@ __all__ = [
     "DEFAULT_PAD_TO",
 ]
 
-# The reference pads nnz to multiples of 4 (CUDA float4 loads); TPU vector
-# lanes are 128 wide, but tiny test matrices are common, so keep the
-# reference-compatible default and let callers opt into 128.
+# The reference pads nnz to multiples of 4 (CUDA float4 loads); tiny test
+# matrices are common, so keep the reference-compatible default and let
+# callers opt into wider padding.
 DEFAULT_PAD_TO = 4
 
 
@@ -63,9 +63,9 @@ def diffsort(row_offsets: np.ndarray) -> np.ndarray:
     ``diffsort`` (``modules/spmm.py:4-6``) computes ``argsort(-lengths,
     descending=True)`` which actually yields *shortest*-first; since the order
     only affects scheduling, not semantics, we implement the documented
-    intent ("needed for load balance", longest first). On a single TPU core
-    the Pallas grid runs sequentially, so no kernel consumes this order —
-    the load balancing that matters lives in the distributed partitioner
+    intent ("needed for load balance", longest first). No kernel consumes
+    this order (each block-row is its own program) — the load balancing
+    that matters lives in the distributed partitioner
     (``parallel/partition.py``: nnz-balanced serpentine assignment of
     row-blocks to devices). This function is kept as the reference-parity
     single-chip definition.

@@ -3,7 +3,7 @@
 The reference framework (and the Sputnik kernel library it binds) exists
 to serve sparse *training* research, but ships no tooling for evolving
 the sparsity pattern itself — users hand-roll prune/regrow loops around
-the kernels. This module supplies that loop's primitives, TPU-first:
+the kernels. This module supplies that loop's primitives:
 
   * Topology updates are HOST steps between jitted segments (exactly the
     paged-KV scheduler's philosophy, ``ops/paged.py``: allocation and
@@ -26,7 +26,7 @@ References (recipes, public):
     (Evci et al., 2020) — drop smallest-|w|, grow largest-|dense grad|.
   * Cubic schedule: "To prune, or not to prune" (Zhu & Gupta, 2017).
 
-No counterpart exists in ``/root/reference`` (SURVEY.md §2 lists none);
+No counterpart exists in the reference (SURVEY.md §2 lists none);
 this is a framework addition in the reference's own problem domain.
 """
 
@@ -250,7 +250,7 @@ def block_rigl_update(topo: SparseTopology, values, dense_grad, *,
     """One RigL connectivity update at WHOLE-TILE granularity.
 
     Element-granular RigL converges to element-random patterns whose
-    block occupancy is ~1.0 at MXU tile sizes — the kernels then do dense
+    block occupancy is ~1.0 at kernel tile sizes — the kernels then do dense
     FLOPs through sparse bookkeeping (the r4 MoE-bank floor). This
     variant drops the ``k = round(fraction * nblocks)`` occupied
     ``(bm, bk)`` tiles with the smallest summed ``|value|`` and grows the

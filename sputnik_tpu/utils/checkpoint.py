@@ -1,7 +1,7 @@
 """Checkpoint save/restore for sparse models.
 
 The reference has no persistence at all (SURVEY.md §5). Here: orbax-backed
-pytree checkpoints (the TPU-ecosystem standard), plus portable CSR export —
+pytree checkpoints (the JAX-ecosystem standard), plus portable CSR export —
 panel-layout value params are converted to flat CSR vectors keyed with the
 topology shape so a checkpoint can be reloaded under a *different* block
 tiling (tiles are an execution detail, not model state).

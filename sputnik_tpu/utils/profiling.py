@@ -1,51 +1,46 @@
 """Profiling and roofline helpers.
 
 Replaces the reference's ad-hoc ``torch.cuda.Event`` timing pairs
-(``tests/test_attention.py:16-28``) with (a) a robust wall-clock measurement
-that stays correct through asynchronous dispatch (including remote-TPU
-tunnels where ``block_until_ready`` returns early — per-iteration time is
-the slope between two enqueue-chain lengths ended by a host scalar fetch),
-(b) ``jax.profiler`` trace capture, and (c) a per-topology roofline model
-fed by the block panel's occupancy (``BlockView.block_density``).
+(``tests/test_attention.py:16-28``) with (a) a wall-clock measurement that
+ends every timed window in ``block_until_ready`` (JAX dispatch is
+asynchronous), (b) ``jax.profiler`` trace capture, and (c) a per-topology
+roofline model fed by the block panel's occupancy
+(``BlockView.block_density``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
-__all__ = ["measure", "trace", "roofline", "CHIP_SPECS"]
+__all__ = ["measure", "trace", "roofline", "CHIP_SPECS", "chip_peaks"]
 
-# peak (HBM GB/s, bf16-matmul TFLOP/s) per chip kind substring
+# Published dense peaks per device kind (substring of ``device_kind``,
+# lower case): (device memory GB/s, bf16 TFLOP/s, TF32 TFLOP/s). NVIDIA
+# H100 SXM data sheet, at the card's full 700 W power limit.
 CHIP_SPECS = {
-    "v5 lite": (819.0, 197.0),
-    "v5e": (819.0, 197.0),
-    "v5p": (2765.0, 459.0),
-    "v4": (1228.0, 275.0),
-    "v6": (1640.0, 918.0),
+    "h100": (3350.0, 989.0, 495.0),
 }
 
 
-def measure(fn: Callable, *args, iters_lo: int = 10, iters_hi: int = 40,
-            repeats: int = 3) -> float:
-    """Milliseconds per call of an already-jitted ``fn(*args)``."""
+def measure(fn: Callable, *args, iters: int = 20, repeats: int = 3) -> float:
+    """Milliseconds per call of an already-jitted ``fn(*args)``: the best
+    of ``repeats`` windows of ``iters`` back-to-back calls, each window
+    ended by ``block_until_ready`` (compilation happens in a warm-up call
+    outside the windows)."""
     import jax
-    import jax.numpy as jnp
 
-    def chain(k):
+    jax.block_until_ready(fn(*args))
+    best = float("inf")
+    for _ in range(repeats):
         t0 = time.perf_counter()
         out = None
-        for _ in range(k):
+        for _ in range(iters):
             out = fn(*args)
-        leaf = jax.tree_util.tree_leaves(out)[0]  # any pytree output
-        float(jnp.sum(leaf.reshape(-1)[:8]))  # host fetch barrier
-        return time.perf_counter() - t0
-
-    chain(1)  # compile + warmup
-    t_lo = min(chain(iters_lo) for _ in range(repeats))
-    t_hi = min(chain(iters_hi) for _ in range(repeats))
-    return max(t_hi - t_lo, 1e-9) / (iters_hi - iters_lo) * 1e3
+        jax.block_until_ready(out)
+        best = min(best, time.perf_counter() - t0)
+    return best / iters * 1e3
 
 
 @contextlib.contextmanager
@@ -60,25 +55,32 @@ def trace(log_dir: str):
         jax.profiler.stop_trace()
 
 
-def _chip_peaks() -> tuple:
-    import jax
+def chip_peaks(device_kind: Optional[str] = None) -> tuple:
+    """``CHIP_SPECS`` row of ``device_kind`` (default: the first JAX
+    device's). A device that is not in the table is an error."""
+    if device_kind is None:
+        import jax
 
-    kind = getattr(jax.devices()[0], "device_kind", "").lower()
+        device_kind = jax.devices()[0].device_kind
+    kind = device_kind.lower()
     for key, peaks in CHIP_SPECS.items():
         if key in kind:
             return peaks
-    return (819.0, 197.0)  # conservative default
+    raise ValueError(f"no published peaks for device kind {device_kind!r}")
 
 
-def roofline(spec, n_out: int, dtype_bytes: int = 4) -> Dict[str, float]:
+def roofline(spec, n_out: int, dtype_bytes: int = 4,
+             device_kind: Optional[str] = None) -> Dict[str, float]:
     """Speed-of-light estimate for ``spmm(spec, panel, dense[n, n_out])``.
 
     Returns bytes/flops of the *block-touched* computation and the
-    bandwidth/compute-bound time bounds on the current chip — the target
-    the BASELINE asks kernels to sit within 10% of.
+    bandwidth/compute-bound time bounds on the device — the target the
+    BASELINE asks kernels to sit within 10% of. Compute is priced at the
+    bf16 peak for 2-byte operands and the TF32 peak otherwise.
     """
     bv = spec.view
-    hbm_gbs, tflops = _chip_peaks()
+    hbm_gbs, bf16_tflops, tf32_tflops = chip_peaks(device_kind)
+    tflops = bf16_tflops if dtype_bytes <= 2 else tf32_tflops
     touched = bv.num_blocks * bv.bm * bv.bk
     bytes_min = (touched + spec.topo.n * n_out + spec.topo.m * n_out
                  ) * dtype_bytes

@@ -9,6 +9,8 @@ import sputnik_tpu as st
 from sputnik_tpu import many_mask as mm
 from sputnik_tpu.ops import batched_panel as bp
 
+from _routes import route
+
 
 @pytest.fixture
 def problem():
@@ -40,13 +42,10 @@ def _chain_mm(mt, hd, q, k, v):
 def test_chain_and_grads_match_many_mask(problem, backend):
     mt, spec = problem["mt"], problem["spec"]
     q, k, v, hd = problem["q"], problem["k"], problem["v"], problem["hd"]
-    try:
-        st.set_backend(backend)
+    with route(backend):
         out = _chain_bp(spec, hd, q, k, v)
         g = jax.grad(
             lambda qq: jnp.sum(_chain_bp(spec, hd, qq, k, v) ** 2))(q)
-    finally:
-        st.set_backend("auto")
     ref = _chain_mm(mt, hd, q, k, v)
     g_ref = jax.grad(
         lambda qq: jnp.sum(_chain_mm(mt, hd, qq, k, v) ** 2))(q)
@@ -86,8 +85,8 @@ def test_transformer_panel_layout_matches_csr_layout():
 
 
 def test_wide_output_tile_divisor_parity():
-    """The widest-VMEM-fitting-divisor output tiles (r5) must stay exact
-    for awkward widths (non-power-of-two, prime*128, > VMEM-fitting)."""
+    """Output-tile padding must stay exact for awkward widths
+    (non-power-of-two, prime*128)."""
     rng = np.random.RandomState(0)
     m = n = 256
     topo = st.SparseTopology.from_dense_mask(
@@ -102,8 +101,7 @@ def test_wide_output_tile_divisor_parity():
     B[topo.row_ids[:topo.nnz], topo.column_indices[:topo.nnz]] = \
         vals[1][:topo.nnz]
 
-    st.set_backend("pallas")
-    try:
+    with route("pallas"):
         for q in (512, 640, 896, 1280, 1664):   # 5x128, 7x128, 13x128...
             dense = jnp.asarray(
                 rng.randn(2, n, q).astype(np.float32))
@@ -121,5 +119,4 @@ def test_wide_output_tile_divisor_parity():
             ref0 = A.T @ np.asarray(g)[0]
             np.testing.assert_allclose(np.asarray(gt)[0], ref0,
                                        atol=1e-3, err_msg=f"gT q={q}")
-    finally:
-        st.set_backend("auto")
+

@@ -67,8 +67,8 @@ def test_project_scaling_efficiency():
     p = cm.project_scaling(8.0, 0.0, 8)
     assert abs(p["efficiency"] - 1.0) < 1e-12
     # comm equal to per-device compute: efficiency exactly 0.5
-    chip = cm.V5E
-    comm_bytes = (8.0 / 8) * 1e-3 * chip.ici_oneway
+    chip = cm.H100
+    comm_bytes = (8.0 / 8) * 1e-3 * chip.link_oneway
     p = cm.project_scaling(8.0, comm_bytes, 8)
     assert abs(p["efficiency"] - 0.5) < 1e-9
     # efficiency is monotone non-increasing in ndev for fixed comm
@@ -88,9 +88,9 @@ def test_nnz_balance():
 
 
 def test_project_scaling_overlap():
-    chip = cm.V5E
+    chip = cm.H100
     # comm equal to per-device compute, fully overlappable -> hidden
-    comm_bytes = (8.0 / 8) * 1e-3 * chip.ici_oneway
+    comm_bytes = (8.0 / 8) * 1e-3 * chip.link_oneway
     p = cm.project_scaling(8.0, comm_bytes, 8, overlap_fraction=1.0)
     assert abs(p["efficiency"] - 1.0) < 1e-9
     assert abs(p["efficiency_serial"] - 0.5) < 1e-9   # floor kept
@@ -108,7 +108,7 @@ def test_project_scaling_hier():
     # no DCN traffic: reduces to the one-tier projection over all chips
     p = cm.project_scaling_hier(8.0, 0.0, 0.0, 2, chips_per_host=4)
     assert p["ndev"] == 8 and abs(p["efficiency"] - 1.0) < 1e-12
-    # DCN traffic hurts more than the same bytes on ICI
+    # DCN traffic hurts more than the same bytes on NVLink
     b = 1e6
     ici_only = cm.project_scaling_hier(8.0, b, 0.0, 2, chips_per_host=4)
     dcn_only = cm.project_scaling_hier(8.0, 0.0, b, 2, chips_per_host=4)

@@ -3,7 +3,7 @@
 Each example supports ``--small`` and self-checks its own semantics
 (generate verifies decode against the full forward on CPU;
 serve_continuous asserts every queued request completes; train asserts
-the loss decreases; int8 serve checks the W8A8 relative error).
+the loss decreases).
 """
 
 import os
@@ -18,7 +18,6 @@ EXAMPLES = [
     ("serve_continuous.py", ["--small"]),
     ("serve_paged.py", ["--small"]),
     ("train_seq_parallel.py", ["--small"]),
-    ("serve_sparse_int8.py", ["--small"]),
     ("train_sparse_transformer.py", ["--small", "--steps", "3"]),
     ("dynamic_sparse_training.py", ["--small"]),
     ("serve_speculative.py", ["--small"]),

@@ -7,6 +7,7 @@ import pytest
 from jax.sharding import Mesh
 
 import sputnik_tpu as st
+from sputnik_tpu.ops._common import interpret_kernels
 from sputnik_tpu.parallel import RowPartition
 from sputnik_tpu.parallel.flash_sharded import (
     ShardedFlashSpec,
@@ -232,10 +233,9 @@ def test_kv_sharded_fallback_full_span(mesh):
     np.testing.assert_allclose(got, ref, atol=1e-4)
 
 
-def test_sharded_bwd_fused_matches_two_kernel(mesh):
-    """The per-shard single-pass fused backward (default under the VMEM
-    budget) and the dq+dkv two-kernel fallback produce the same grads."""
-    from sputnik_tpu.ops import fused_attention as fa
+def test_sharded_flash_kernels_match_plain(mesh):
+    """Per-shard forward + dq/dkv backward through the Triton kernels
+    (interpret) give the plain route's output and grads."""
 
     rng = np.random.RandomState(4)
     s, hd, R = 320, 32, 2
@@ -248,19 +248,16 @@ def test_sharded_bwd_fused_matches_two_kernel(mesh):
     k = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
     v = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
 
-    def grads():
-        return jax.jit(jax.grad(
-            lambda a, b, c: jnp.sum(
-                flash_attention_sharded(spec, a, b, c) ** 2),
+    def run():
+        f = lambda a, b, c: flash_attention_sharded(spec, a, b, c)  # noqa
+        out = jax.jit(f)(q_sh, k, v)
+        return (out,) + jax.jit(jax.grad(
+            lambda a, b, c: jnp.sum(f(a, b, c) ** 2),
             argnums=(0, 1, 2)))(q_sh, k, v)
 
-    fused = grads()
-    old = fa._FUSED_BWD_ACC_BYTES
-    fa._FUSED_BWD_ACC_BYTES = 0
-    try:
-        two = grads()
-    finally:
-        fa._FUSED_BWD_ACC_BYTES = old
-    for a, b, nm in zip(fused, two, "qkv"):
+    plain = run()
+    with interpret_kernels():
+        kern = run()
+    for a, b, nm in zip(kern, plain, ("out", "q", "k", "v")):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    atol=1e-3, err_msg=nm)

@@ -13,6 +13,7 @@ import numpy as np
 import optax
 
 import sputnik_tpu as st
+from sputnik_tpu.ops._common import interpret_kernels
 from sputnik_tpu.models import (
     SparseAttention,
     SparseLinear,
@@ -272,9 +273,9 @@ class TestSparseTransformer:
 
 
 def test_gqa_flash_path_native_grouping():
-    """s >= 128 routes to the fused flash kernel, which now groups KV
-    natively (no repeat): parity vs explicitly repeated K/V through the
-    same kernel, forward + grads, kernel backend (interpret)."""
+    """The fused flash kernel groups KV natively (no repeat): parity vs
+    explicitly repeated K/V through the same kernel, forward + grads,
+    Triton kernels in interpret mode."""
     from sputnik_tpu import many_mask as mm
     from sputnik_tpu.models.transformer import SparseCoreAttention
 
@@ -288,16 +289,13 @@ def test_gqa_flash_path_native_grouping():
     core = SparseCoreAttention(mask_topology=mt, num_heads=heads,
                                layout="flash", flash_block=128,
                                flash_block_k=128)
-    st.set_backend("pallas")
-    try:
+    with interpret_kernels():
         y_gqa = core.apply({}, q, k, v)
         y_rep = core.apply({}, q, jnp.repeat(k, heads // kv, axis=2),
                            jnp.repeat(v, heads // kv, axis=2))
         gq, gk, gv = jax.grad(
             lambda a, b_, c: jnp.sum(core.apply({}, a, b_, c) ** 2),
             argnums=(0, 1, 2))(q, k, v)
-    finally:
-        st.set_backend("auto")
     np.testing.assert_allclose(np.asarray(y_gqa), np.asarray(y_rep),
                                atol=1e-4)
     assert gk.shape == k.shape and gv.shape == v.shape

@@ -380,9 +380,9 @@ def test_moe_lm_trains():
 
 def test_ep_bank_tiles_resolved_once_with_param_expert_count(monkeypatch):
     """The kernel tiles must be resolved ONCE with the param-owning
-    expert count E: an n_rep-dependent tile table (the autotune-backed
-    path on TPU) must NOT let the ep-local compute pick different tiles
-    than the params were created with (panel-shape mismatch)."""
+    expert count E: the ep-local compute must NOT pick different tiles
+    than the params were created with (panel-shape mismatch), here under
+    a non-default tile table."""
     import jax
     from jax.sharding import Mesh
 

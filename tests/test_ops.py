@@ -19,6 +19,8 @@ from jax.test_util import check_grads
 import sputnik_tpu as st
 from sputnik_tpu.patterns import init_uniform, sparsify_uniform
 
+from _routes import route
+
 # Reference tolerances: 1e-2 element threshold for matmul-class ops
 # (tests/test_spmm.py:37), 1e-4 for SDDMM (tests/test_sddmm.py:34). We use
 # rtol-style allclose at comparable strictness.
@@ -311,8 +313,8 @@ def test_flat_api_mixed_dtype_grads():
 
 def test_flat_dispatch_caches():
     """Eager flat-path caches: prebuilt jitted closure reused per
-    (spec, dtypes); cast cache bounded at its small slot count (dense
-    operands are transient activations — pinning 8 pairs leaked HBM)."""
+    (spec, dtype, epilogue, route); the values->panel cache is a bounded
+    FIFO (it pins device buffers)."""
     from sputnik_tpu.ops.pallas import dispatch
 
     topo = st.SparseTopology.from_dense_mask(
@@ -321,42 +323,45 @@ def test_flat_dispatch_caches():
     spec = dispatch._flat_spec(topo)
     assert dispatch._flat_spec(topo) is spec          # spec cached
 
-    f1 = dispatch._flat_fn(spec, None, jnp.float32, "none")
-    f2 = dispatch._flat_fn(spec, None, jnp.float32, "none")
+    f1 = dispatch._flat_fn(spec, jnp.float32, "none")
+    f2 = dispatch._flat_fn(spec, jnp.float32, "none")
     assert f1 is f2                                   # closure cached
-    f3 = dispatch._flat_fn(spec, None, jnp.float32, "bias")
+    f3 = dispatch._flat_fn(spec, jnp.float32, "bias")
     assert f3 is not f1                               # epilogue keyed
+    with route("pallas"):
+        f4 = dispatch._flat_fn(spec, jnp.float32, "none")
+    assert f4 is not f1                               # route keyed
 
-    dispatch._cast_cache.clear()
-    arrs = [jnp.ones((4, 4), jnp.float32) * i for i in range(5)]
-    for a in arrs:
-        dispatch._cast_cached(a, jnp.bfloat16)
-    assert len(dispatch._cast_cache) == dispatch._CAST_CACHE_SLOTS
-    # identity hit returns the SAME cast buffer
-    c1 = dispatch._cast_cached(arrs[-1], jnp.bfloat16)
-    c2 = dispatch._cast_cached(arrs[-1], jnp.bfloat16)
-    assert c1 is c2 and c1.dtype == jnp.bfloat16
+    dispatch._panel_cache.clear()
+    vals = [jnp.full((topo.nnz_pad,), float(i), jnp.float32)
+            for i in range(dispatch._PANEL_CACHE_SLOTS + 3)]
+    for v in vals:
+        dispatch._values_panel(spec, v)
+    assert len(dispatch._panel_cache) == dispatch._PANEL_CACHE_SLOTS
+    # identity hit returns the SAME panel buffer
+    p1 = dispatch._values_panel(spec, vals[-1])
+    p2 = dispatch._values_panel(spec, vals[-1])
+    assert p1 is p2
+    dispatch._panel_cache.clear()
 
 
 def test_flat_dispatch_cache_flush_and_size_guard():
-    """set_backend flushes the flat-dispatch caches (pinned HBM release +
-    prebuilt-closure staleness); oversized activations are never pinned."""
+    """set_backend flushes the flat-dispatch caches (pinned device buffers
+    + prebuilt closures); traced values are never cached."""
     import sputnik_tpu as st
     from sputnik_tpu.ops.pallas import dispatch
 
-    dispatch._cast_cache.clear()
-    a = jnp.ones((4, 4), jnp.float32)
-    dispatch._cast_cached(a, jnp.bfloat16)
-    assert len(dispatch._cast_cache) == 1
+    topo = st.SparseTopology.from_dense_mask(
+        (np.random.RandomState(1).rand(64, 64) < 0.3).astype(np.float32))
+    spec = dispatch._flat_spec(topo)
+    vals = jnp.ones((topo.nnz_pad,), jnp.float32)
+    dispatch.flush_caches()
+    dispatch._values_panel(spec, vals)
+    dispatch._flat_fn(spec, jnp.float32, "none")
+    assert len(dispatch._panel_cache) == 1 and len(dispatch._fn_cache) >= 1
     st.set_backend("auto")
-    assert len(dispatch._cast_cache) == 0
+    assert len(dispatch._panel_cache) == 0
     assert len(dispatch._fn_cache) == 0
 
-    old = dispatch._CAST_CACHE_MAX_BYTES
-    dispatch._CAST_CACHE_MAX_BYTES = 8
-    try:
-        c = dispatch._cast_cached(a, jnp.bfloat16)  # 64 bytes > 8
-        assert c.dtype == jnp.bfloat16
-        assert len(dispatch._cast_cache) == 0       # not pinned
-    finally:
-        dispatch._CAST_CACHE_MAX_BYTES = old
+    jax.jit(lambda v: dispatch._values_panel(spec, v))(vals)
+    assert len(dispatch._panel_cache) == 0            # traced: not pinned

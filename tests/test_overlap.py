@@ -1,7 +1,7 @@
 """Comm/compute overlap: dataflow evidence + parity of the split paths.
 
 The BASELINE north star demands halo/band exchanges "overlapped with
-Pallas compute". Overlap is a SCHEDULING property, but it has a necessary
+kernel compute". Overlap is a SCHEDULING property, but it has a necessary
 dataflow precondition the compiler cannot invent: within one step, the
 collective must not consume kernel outputs, and (for the halo split) at
 least one kernel pass must not consume collective outputs. These tests
@@ -22,6 +22,7 @@ import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
 import sputnik_tpu as st
+from sputnik_tpu.ops._common import interpret_kernels
 from sputnik_tpu.parallel import RowPartition
 
 NDEV = 8
@@ -118,7 +119,10 @@ def _analyze(jaxpr, in_k, in_c, rep):
 
 
 def overlap_report(fn, *args) -> OverlapReport:
-    jx = jax.make_jaxpr(fn)(*args)
+    # traced on the kernel route (what runs on the GPU): each kernel is a
+    # pallas_call in the jaxpr
+    with interpret_kernels():
+        jx = jax.make_jaxpr(fn)(*args)
     rep = OverlapReport()
     n = len(jx.jaxpr.invars)
     _analyze(jx.jaxpr, [False] * n, [False] * n, rep)

@@ -1,10 +1,13 @@
-"""Pallas block-CSR kernel parity vs the XLA oracle (interpret mode on CPU).
+"""Pallas-Triton kernel parity vs the XLA oracle (interpret mode on CPU).
 
 Mirrors the reference's dense-oracle validation style (SURVEY.md §4) one
-level down: the oracle here is the already-dense-validated XLA path, so any
-kernel bug shows as an xla/pallas split. Gradients are covered through the
-public custom_vjp ops with the backend forced, which routes the *backward*
-compositions through the kernels too.
+level down: the oracle is ``ops/xla_ops`` (independent element-level
+gathers), so any kernel bug shows as a kernel/oracle split. Every kernel
+runs through the Pallas interpreter (``interpret_kernels``) AND through
+its plain block-gather twin, at small shapes with empty rows, partial
+blocks, padding, GQA and f32/bf16 operands. Gradients are covered through
+the public custom_vjp ops, which route the *backward* compositions
+through the kernels too.
 """
 
 import numpy as np
@@ -16,7 +19,8 @@ import sputnik_tpu as st
 from sputnik_tpu.ops import xla_ops
 from sputnik_tpu.ops.pallas.bsr_sddmm import bsr_sddmm
 from sputnik_tpu.ops.pallas.bsr_spmm import bsr_spmm
-from sputnik_tpu.ops.pallas.ell_softmax import ell_softmax
+
+from _routes import route
 
 
 def _random_topo(rng, m, k, density, empty_row=True):
@@ -28,55 +32,77 @@ def _random_topo(rng, m, k, density, empty_row=True):
     return mat.topology, jnp.asarray(mat.values)
 
 
+ROUTES = ["xla", "pallas"]
+
+
+@pytest.mark.parametrize("backend", ROUTES)
 @pytest.mark.parametrize(
     "m,k,n,density",
     [(72, 64, 72, 0.5), (200, 130, 50, 0.1), (8, 300, 17, 0.3)],
 )
-def test_bsr_spmm_parity(m, k, n, density):
+def test_bsr_spmm_parity(m, k, n, density, backend):
     rng = np.random.RandomState(0)
     topo, vals = _random_topo(rng, m, k, density)
     dense = jnp.asarray(rng.randn(k, n).astype(np.float32))
     ref = xla_ops.spmm(vals, topo.column_indices, topo.row_ids, topo.m, dense)
-    out = bsr_spmm(topo, vals, dense, interpret=True)
+    with route(backend):
+        out = bsr_spmm(topo, vals, dense, bm=16, bk=32, bn=16)
     np.testing.assert_allclose(out, ref, atol=1e-4)
 
 
-def test_bsr_spmm_bias_relu():
+@pytest.mark.parametrize("backend", ROUTES)
+@pytest.mark.parametrize("epilogue", ["bias", "bias_relu"])
+def test_bsr_spmm_bias_relu(epilogue, backend):
     rng = np.random.RandomState(1)
     topo, vals = _random_topo(rng, 72, 64, 0.5)
     dense = jnp.asarray(rng.randn(64, 40).astype(np.float32))
     bias = jnp.asarray(rng.randn(72).astype(np.float32))
     ref = xla_ops.spmm(vals, topo.column_indices, topo.row_ids, topo.m, dense)
-    ref = jnp.maximum(ref + bias[:, None], 0.0)
-    out = bsr_spmm(topo, vals, dense, bias, epilogue="bias_relu",
-                   interpret=True)
+    ref = ref + bias[:, None]
+    if epilogue == "bias_relu":
+        ref = jnp.maximum(ref, 0.0)
+    with route(backend):
+        out = bsr_spmm(topo, vals, dense, bias, bm=16, bk=16, bn=16,
+                       epilogue=epilogue)
     np.testing.assert_allclose(out, ref, atol=1e-4)
 
 
+@pytest.mark.parametrize("backend", ROUTES)
 @pytest.mark.parametrize("m,n,d,sp", [(72, 72, 64, 0.5), (130, 50, 96, 0.2)])
-def test_bsr_sddmm_parity(m, n, d, sp):
+def test_bsr_sddmm_parity(m, n, d, sp, backend):
     rng = np.random.RandomState(2)
     topo, _ = _random_topo(rng, m, n, sp)
     lhs = jnp.asarray(rng.randn(m, d).astype(np.float32))
     rhs = jnp.asarray(rng.randn(n, d).astype(np.float32))
     ref = xla_ops.sddmm(lhs, rhs, topo.row_ids, topo.column_indices,
                         topo.valid)
-    out = bsr_sddmm(topo, lhs, rhs, interpret=True)
+    with route(backend):
+        out = bsr_sddmm(topo, lhs, rhs, bm=16, bk=16)
     np.testing.assert_allclose(out, ref, atol=1e-4)
 
 
-def test_ell_softmax_parity_incl_empty_row():
+@pytest.mark.parametrize("backend", ROUTES)
+def test_flat_softmax_parity_incl_empty_row(backend):
     rng = np.random.RandomState(3)
     topo, _ = _random_topo(rng, 72, 72, 0.5, empty_row=True)
     vals = jnp.asarray(rng.randn(topo.nnz_pad).astype(np.float32))
     ref = xla_ops.sparse_softmax(vals, topo.row_ids, topo.valid, topo.m)
-    out = ell_softmax(topo, vals, interpret=True)
+    with route(backend):
+        out = st.sparse_softmax(topo, vals)
     np.testing.assert_allclose(out, ref, atol=1e-5)
     assert np.all(np.isfinite(np.asarray(out)))
 
 
+def _dense_of(topo, vals):
+    A = np.zeros((topo.m, topo.n), np.float32)
+    A[topo.row_ids[: topo.nnz], topo.column_indices[: topo.nnz]] = \
+        np.asarray(vals)[: topo.nnz]
+    return A
+
+
 def test_forced_pallas_backend_end_to_end_grads():
-    """Public API with backend forced to pallas: fwd + grads match xla."""
+    """Public API through the interpreted kernels: fwd + grads match the
+    plain route."""
     rng = np.random.RandomState(4)
     m, k, n = 40, 36, 28
     topo, vals = _random_topo(rng, m, k, 0.4)
@@ -97,13 +123,10 @@ def test_forced_pallas_backend_end_to_end_grads():
             lambda v: jnp.sum(st.sparse_softmax(topo, v) ** 2))(vals)
         return out
 
-    st.set_backend("xla")
-    ref = run()
-    try:
-        st.set_backend("pallas")
+    with route("xla"):
+        ref = run()
+    with route("pallas"):
         got = run()
-    finally:
-        st.set_backend("auto")
     for name in ref:
         np.testing.assert_allclose(got[name], ref[name], atol=1e-3,
                                    err_msg=name)
@@ -113,293 +136,11 @@ def test_forced_pallas_replicated_left_spmm():
     rng = np.random.RandomState(5)
     topo, vals = _random_topo(rng, 24, 20, 0.5)
     dense3 = jnp.asarray(rng.randn(3, 20, 12).astype(np.float32))
-    st.set_backend("xla")
-    ref = st.left_spmm(topo, vals, dense3)
-    try:
-        st.set_backend("pallas")
+    ref = np.einsum("mk,rkn->rmn", np.asarray(_dense_of(topo, vals)),
+                    np.asarray(dense3))
+    with route("pallas"):
         got = st.left_spmm(topo, vals, dense3)
-    finally:
-        st.set_backend("auto")
     np.testing.assert_allclose(got, ref, atol=1e-4)
-
-
-def test_int8_quantized_spmm():
-    """W8A8 serving kernel: blockwise int8 weights, per-tile dynamic int8
-    activations, int32 MXU accumulation — ~1e-2 relative error."""
-    from sputnik_tpu.ops.pallas.bsr_spmm_int8 import (
-        bsr_spmm_panel_int8,
-        quantize_panel_np,
-    )
-    from sputnik_tpu.ops import panel_api as P
-
-    rng = np.random.RandomState(9)
-    m, k, q = 160, 144, 64
-    A = ((rng.rand(m, k) < 0.3) * rng.randn(m, k)).astype(np.float32)
-    mat = st.SparseMatrix(A)
-    t = mat.topology
-    bm = bk = 16
-    bv = t.block(bm, bk)
-    q8, sc = quantize_panel_np(P.values_to_panel_np(t, mat.values, bm, bk))
-    dpad = np.zeros((bv.n_pad, 64), np.float32)
-    dense = rng.randn(k, q).astype(np.float32)
-    dpad[:k, :q] = dense
-    out = bsr_spmm_panel_int8(
-        jnp.asarray(bv.block_cols.reshape(-1)), jnp.asarray(bv.nblocks),
-        jnp.asarray(q8), jnp.asarray(sc), jnp.asarray(dpad),
-        mb=bv.mb, max_bpr=bv.max_bpr, kb=bv.kb, bm=bm, bk=bk, bn=64,
-        interpret=True)
-    ref = A @ dense
-    rel = np.abs(np.asarray(out)[:m, :q] - ref).max() / np.abs(ref).max()
-    assert rel < 5e-2, rel
-
-
-def test_int8_api_family():
-    """Round-2 (VERDICT r1 #5): the int8 serving family — spmm, spmm_t,
-    sddmm through the public sputnik_tpu.int8 API (forced-pallas interpret
-    mode), each within W8A8 error of the fp32 result."""
-    from sputnik_tpu.ops import panel_api as P
-    from sputnik_tpu import int8 as q8
-
-    rng = np.random.RandomState(10)
-    m, k, q = 96, 80, 48
-    A = ((rng.rand(m, k) < 0.3) * rng.randn(m, k)).astype(np.float32)
-    mat = st.SparseMatrix(A)
-    spec = P.PanelSpec(mat.topology, bm=16, bk=16)
-    panel = P.values_to_panel_np(mat.topology, mat.values, 16, 16)
-    qp = q8.quantize_panel(spec, panel)
-    dense = jnp.asarray(rng.randn(k, q).astype(np.float32))
-    g = jnp.asarray(rng.randn(m, q).astype(np.float32))
-    lhs = jnp.asarray(rng.randn(m, 32).astype(np.float32))
-    rhs = jnp.asarray(rng.randn(k, 32).astype(np.float32))
-
-    st.set_backend("pallas")
-    try:
-        out = q8.spmm_int8(spec, qp, dense)
-        outt = q8.spmm_t_int8(spec, qp, g)
-        sp = q8.sddmm_int8(spec, lhs, rhs)
-    finally:
-        st.set_backend("auto")
-
-    ref = A @ np.asarray(dense)
-    rel = np.abs(np.asarray(out) - ref).max() / np.abs(ref).max()
-    assert rel < 5e-2, rel
-    reft = A.T @ np.asarray(g)
-    relt = np.abs(np.asarray(outt) - reft).max() / np.abs(reft).max()
-    assert relt < 5e-2, relt
-    # sddmm: compare panel against masked product
-    sp_flat = np.asarray(P.panel_to_values_np(
-        mat.topology, np.asarray(sp), 16, 16))
-    ref_full = np.asarray(lhs) @ np.asarray(rhs).T
-    t = mat.topology
-    ref_vals = ref_full[t.row_ids[: t.nnz], t.column_indices[: t.nnz]]
-    rels = np.abs(sp_flat[: t.nnz] - ref_vals).max() / np.abs(ref_vals).max()
-    assert rels < 5e-2, rels
-
-
-def test_int8_flash_attention():
-    """Int8 fused sparse-flash forward vs the dense oracle (causal mask,
-    interpret mode): W8A8-class error."""
-    from sputnik_tpu.ops import batched_panel as bp
-    from sputnik_tpu.many_mask import ManyMaskTopology
-    from sputnik_tpu import int8 as q8
-
-    B, heads, s, hd = 1, 2, 64, 16
-    R = B * heads
-    rng = np.random.RandomState(11)
-    masks = np.tril(np.ones((B, s, s), np.float32))
-    mt = ManyMaskTopology.from_dense_masks(masks)
-    spec = bp.BatchedPanelSpec.from_many_mask(mt, heads=heads, bm=32, bk=32)
-    q = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-    k = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-    v = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-
-    st.set_backend("pallas")
-    try:
-        out = q8.attention_int8(spec, q, k, v)
-    finally:
-        st.set_backend("auto")
-
-    qn, kn, vn = (np.asarray(x) for x in (q, k, v))
-    sc = np.einsum("rsd,rtd->rst", qn, kn) / np.sqrt(hd)
-    m3 = np.repeat(masks, heads, axis=0)
-    sc = np.where(m3 > 0, sc, -1e30)
-    w = np.exp(sc - sc.max(-1, keepdims=True))
-    w = w / w.sum(-1, keepdims=True)
-    ref = np.einsum("rst,rtd->rsd", w, vn)
-    rel = np.abs(np.asarray(out) - ref).max() / np.abs(ref).max()
-    assert rel < 6e-2, rel
-
-
-def test_int8_qat_attention():
-    """attention_qat: int8 fused forward + fp32 STE backward — forward
-    matches attention_int8, gradients match the fp32 fused chain exactly."""
-    from sputnik_tpu.ops import batched_panel as bp
-    from sputnik_tpu.ops.fused_attention import fused_sparse_attention
-    from sputnik_tpu.many_mask import ManyMaskTopology
-    from sputnik_tpu import int8 as q8
-
-    B, heads, s, hd = 1, 2, 64, 16
-    R = B * heads
-    rng = np.random.RandomState(13)
-    masks = np.tril(np.ones((B, s, s), np.float32))
-    mt = ManyMaskTopology.from_dense_masks(masks)
-    spec = bp.BatchedPanelSpec.from_many_mask(mt, heads=heads, bm=32, bk=32)
-    q = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-    k = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-    v = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-    cot = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-
-    st.set_backend("pallas")
-    try:
-        out = q8.attention_qat(spec, q, k, v)
-        ref_fwd = q8.attention_int8(spec, q, k, v)
-        g = jax.grad(lambda q, k, v: jnp.sum(
-            q8.attention_qat(spec, q, k, v) * cot), argnums=(0, 1, 2))(
-                q, k, v)
-        g_ref = jax.grad(lambda q, k, v: jnp.sum(
-            fused_sparse_attention(spec, q, k, v) * cot),
-            argnums=(0, 1, 2))(q, k, v)
-    finally:
-        st.set_backend("auto")
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref_fwd),
-                               atol=1e-6)
-    for a, b in zip(g, g_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
-
-
-def test_int8_attention_full_int8_backward():
-    """attention_qat(backward="int8"): the full-int8 training path — the
-    backward's contractions run int8 too. Gradients must be within the
-    W8A8 error class of the fp32 fused chain, and fully-masked rows must
-    stay finite."""
-    from sputnik_tpu.ops import batched_panel as bp
-    from sputnik_tpu.ops.fused_attention import fused_sparse_attention
-    from sputnik_tpu.many_mask import ManyMaskTopology
-    from sputnik_tpu import int8 as q8
-
-    B, heads, s, hd = 1, 2, 64, 16
-    R = B * heads
-    rng = np.random.RandomState(17)
-    masks = np.tril(np.ones((B, s, s), np.float32))
-    masks[:, 1, :] = 0.0  # fully-masked row (driver.py:11-14 scenario)
-    mt = ManyMaskTopology.from_dense_masks(masks)
-    spec = bp.BatchedPanelSpec.from_many_mask(mt, heads=heads, bm=32, bk=32)
-    q = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-    k = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-    v = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-    cot = jnp.asarray(rng.randn(R, s, hd).astype(np.float32))
-
-    st.set_backend("pallas")
-    try:
-        out = q8.attention_qat(spec, q, k, v, backward="int8")
-        ref_fwd = q8.attention_int8(spec, q, k, v)
-        g = jax.grad(lambda q, k, v: jnp.sum(
-            q8.attention_qat(spec, q, k, v, backward="int8") * cot),
-            argnums=(0, 1, 2))(q, k, v)
-        g_ref = jax.grad(lambda q, k, v: jnp.sum(
-            fused_sparse_attention(spec, q, k, v) * cot),
-            argnums=(0, 1, 2))(q, k, v)
-    finally:
-        st.set_backend("auto")
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref_fwd),
-                               atol=1e-6)
-    for name, a, b in zip("qkv", g, g_ref):
-        a, b = np.asarray(a), np.asarray(b)
-        assert np.isfinite(a).all(), name
-        rel = np.abs(a - b).max() / np.abs(b).max()
-        assert rel < 8e-2, (name, rel)
-
-
-def test_int8_attention_bad_backward_arg():
-    from sputnik_tpu.ops import batched_panel as bp
-    from sputnik_tpu.many_mask import ManyMaskTopology
-    from sputnik_tpu import int8 as q8
-
-    masks = np.tril(np.ones((1, 32, 32), np.float32))
-    mt = ManyMaskTopology.from_dense_masks(masks)
-    spec = bp.BatchedPanelSpec.from_many_mask(mt, heads=1, bm=32, bk=32)
-    q = jnp.zeros((1, 32, 8), jnp.float32)
-    with pytest.raises(ValueError, match="backward"):
-        q8.attention_qat(spec, q, q, q, backward="int4")
-
-
-def test_int8_qat_spmm_grads():
-    """Quantized training (VERDICT r1 follow-up): spmm_qat under jit —
-    W8A8 forward, int8 backward (spmm_t_int8 + sddmm_int8 STE) — forward
-    and both gradients within W8A8-class error of the fp32 chain."""
-    from sputnik_tpu.ops import panel_api as P
-    from sputnik_tpu import int8 as q8
-
-    rng = np.random.RandomState(12)
-    m, k, q = 96, 80, 48
-    A = ((rng.rand(m, k) < 0.3) * rng.randn(m, k)).astype(np.float32)
-    mat = st.SparseMatrix(A)
-    spec = P.PanelSpec(mat.topology, bm=16, bk=16)
-    panel = jnp.asarray(P.values_to_panel_np(mat.topology, mat.values, 16, 16))
-    dense = jnp.asarray(rng.randn(k, q).astype(np.float32))
-    cot = jnp.asarray(rng.randn(m, q).astype(np.float32))
-
-    def loss_qat(p, d):
-        return jnp.sum(q8.spmm_qat(spec, p, d) * cot)
-
-    def loss_f32(p, d):
-        return jnp.sum(P.spmm(spec, p, d) * cot)
-
-    for backend in ("pallas", "xla"):
-        st.set_backend(backend)
-        try:
-            out = jax.jit(lambda p, d: q8.spmm_qat(spec, p, d))(panel, dense)
-            gp, gd = jax.jit(jax.grad(loss_qat, argnums=(0, 1)))(panel, dense)
-        finally:
-            st.set_backend("auto")
-        ref = A @ np.asarray(dense)
-        rel = np.abs(np.asarray(out) - ref).max() / np.abs(ref).max()
-        assert rel < 5e-2, (backend, rel)
-        rgp, rgd = jax.grad(loss_f32, argnums=(0, 1))(panel, dense)
-        reld = (np.abs(np.asarray(gd) - np.asarray(rgd)).max()
-                / np.abs(np.asarray(rgd)).max())
-        assert reld < 5e-2, (backend, reld)
-        # panel grad only meaningful on occupied tiles — compare flat values
-        gp_flat = P.panel_to_values_np(mat.topology, np.asarray(gp), 16, 16)
-        rgp_flat = P.panel_to_values_np(mat.topology, np.asarray(rgp), 16, 16)
-        t = mat.topology
-        relp = (np.abs(gp_flat[: t.nnz] - rgp_flat[: t.nnz]).max()
-                / np.abs(rgp_flat[: t.nnz]).max())
-        assert relp < 5e-2, (backend, relp)
-
-
-def test_int8_qat_bf16_primals_grad_dtypes():
-    """custom_vjp requires cotangents to match the primal dtypes; the
-    int8 kernels emit f32, so the QAT backwards must cast — a bf16
-    activation (the default streaming dtype) used to crash jax.grad."""
-    from sputnik_tpu.ops import panel_api as P
-    from sputnik_tpu.ops import batched_panel as bp
-    from sputnik_tpu import int8 as q8
-
-    rng = np.random.RandomState(13)
-    A = ((rng.rand(64, 64) < 0.4) * rng.randn(64, 64)).astype(np.float32)
-    mat = st.SparseMatrix(A)
-    spec = P.PanelSpec(mat.topology, bm=16, bk=16)
-    panel = jnp.asarray(
-        P.values_to_panel_np(mat.topology, mat.values, 16, 16))
-    dense = jnp.asarray(rng.randn(64, 32), jnp.bfloat16)
-    gp, gd = jax.grad(
-        lambda p, d: jnp.sum(q8.spmm_qat(spec, p, d).astype(jnp.float32)),
-        argnums=(0, 1))(panel, dense)
-    assert gd.dtype == jnp.bfloat16 and gp.dtype == panel.dtype
-
-    # fused int8-backward attention with bf16 q/k/v
-    masks = np.tril(np.ones((1, 32, 32), np.float32))
-    bspec = bp.BatchedPanelSpec.from_many_mask(
-        st.many_mask.ManyMaskTopology.from_dense_masks(masks),
-        heads=1, bm=16, bk=16)
-    q = jnp.asarray(rng.randn(1, 32, 16), jnp.bfloat16)
-    dq, dk, dv = jax.grad(
-        lambda a, b, c: jnp.sum(
-            q8.attention_qat(bspec, a, b, c,
-                             backward="int8").astype(jnp.float32)),
-        argnums=(0, 1, 2))(q, q + 1, q - 1)
-    assert dq.dtype == dk.dtype == dv.dtype == jnp.bfloat16
 
 
 def test_flat_dispatch_panel_cache():
@@ -415,8 +156,7 @@ def test_flat_dispatch_panel_cache():
     ref = xla_ops.spmm(vals, topo.column_indices, topo.row_ids,
                        topo.m, dense)
 
-    st.set_backend("pallas")
-    try:
+    with route("pallas"):
         dispatch._panel_cache.clear()
         out1 = st.spmm(topo, vals, dense)
         assert len(dispatch._panel_cache) == 1
@@ -426,9 +166,7 @@ def test_flat_dispatch_panel_cache():
         out3 = st.spmm(topo, vals2, dense)         # distinct buffer: miss
         assert len(dispatch._panel_cache) == 2
         outj = jax.jit(lambda v, d: st.spmm(topo, v, d))(vals, dense)
-    finally:
-        st.set_backend("auto")
-        dispatch._panel_cache.clear()
+    dispatch._panel_cache.clear()
 
     np.testing.assert_allclose(out1, ref, atol=1e-4)
     np.testing.assert_allclose(out2, ref, atol=1e-4)

@@ -1,7 +1,7 @@
 """Panel-native op tests: parity vs oracle, gradients, layout round-trips.
 
-The panel layer (``ops/panel_api.py``) is the TPU-canonical path; these
-tests pin (a) xla-backend vs forced-pallas(interpret) parity for every op
+The panel layer (``ops/panel_api.py``) is the canonical path; these
+tests pin (a) plain-route vs Triton-kernel (interpret) parity for every op
 and its VJP, (b) agreement with plain dense linear algebra, and (c) the
 finite-difference gradcheck the reference aspired to but never ran
 (``tests/test_spmm_grad.py:4`` imports gradcheck, never calls it).
@@ -15,6 +15,8 @@ import pytest
 
 import sputnik_tpu as st
 from sputnik_tpu.ops import panel_api as P
+
+from _routes import route
 
 
 @pytest.fixture
@@ -88,13 +90,10 @@ def test_backend_parity_all_ops(problem):
             lambda b: jnp.sum(P.spmm_bias_relu(spec, panel, dense, b)))(bias)
         return o
 
-    st.set_backend("xla")
-    ref = run()
-    try:
-        st.set_backend("pallas")
+    with route("xla"):
+        ref = run()
+    with route("pallas"):
         got = run()
-    finally:
-        st.set_backend("auto")
     for name in ref:
         np.testing.assert_allclose(got[name], ref[name], atol=1e-3,
                                    err_msg=name)
@@ -146,12 +145,9 @@ def test_bf16_operands(problem):
     """bf16 values/dense with f32 accumulation (production serving mode)."""
     spec, panel, dense = problem["spec"], problem["panel"], problem["dense"]
     A = problem["A"]
-    st.set_backend("pallas")
-    try:
+    with route("pallas"):
         out = P.spmm(spec, panel.astype(jnp.bfloat16),
                      dense.astype(jnp.bfloat16))
-    finally:
-        st.set_backend("auto")
     assert out.dtype == jnp.float32
     ref = np.asarray(A @ dense)
     rel = np.abs(np.asarray(out) - ref).max() / np.abs(ref).max()
@@ -182,15 +178,12 @@ def test_compressed_panel_skewed_topology():
     dense = jnp.asarray(rng.randn(m, 24).astype(np.float32))
     g = jnp.asarray(rng.randn(m, 24).astype(np.float32))
     for backend in ("xla", "pallas"):
-        st.set_backend(backend)
-        try:
+        with route(backend):
             out = P.spmm(spec_c, pc, dense)
             outt = P.spmm_t(spec_c, pc, g)
             gp, gd = jax.grad(
                 lambda p, d: jnp.sum(P.spmm(spec_c, p, d) ** 2),
                 argnums=(0, 1))(pc, dense)
-        finally:
-            st.set_backend("auto")
         np.testing.assert_allclose(np.asarray(out), A @ np.asarray(dense),
                                    atol=1e-3)
         np.testing.assert_allclose(np.asarray(outt), A.T @ np.asarray(g),
@@ -237,14 +230,11 @@ def test_compressed_algebra_closure():
         return P.spmm(spec, w, vv)
 
     for backend in ("xla", "pallas"):
-        st.set_backend(backend)
-        try:
+        with route(backend):
             ctx = chain(lhs, rhs, v)
             gl, gr, gv = jax.grad(
                 lambda l, r, vv: jnp.sum(chain(l, r, vv) ** 2),
                 argnums=(0, 1, 2))(lhs, rhs, v)
-        finally:
-            st.set_backend("auto")
         np.testing.assert_allclose(np.asarray(ctx), ctx_ref, atol=1e-3,
                                    err_msg=backend)
         assert all(bool(jnp.isfinite(x).all()) for x in (gl, gr, gv))
@@ -252,24 +242,17 @@ def test_compressed_algebra_closure():
         np.testing.assert_allclose(np.asarray(ctx)[9], 0.0, atol=1e-6)
 
     # backend parity of the chain gradient
-    st.set_backend("xla")
-    try:
+    with route("xla"):
         g_ref = jax.grad(lambda l: jnp.sum(chain(l, rhs, v) ** 2))(lhs)
-    finally:
-        st.set_backend("auto")
-    st.set_backend("pallas")
-    try:
+    with route("pallas"):
         g_got = jax.grad(lambda l: jnp.sum(chain(l, rhs, v) ** 2))(lhs)
-    finally:
-        st.set_backend("auto")
     np.testing.assert_allclose(np.asarray(g_got), np.asarray(g_ref),
                                atol=1e-3)
 
 
 def test_compressed_uniform_blocks_no_nan_dump():
     """Regression: when every row-block has the SAME block count, the
-    compressed kernels' dump slot is never visited by the grid and its
-    content is undefined (NaN in interpret mode). The raw gradient arrays
+    compressed ops' dump slot is never a real block. The raw gradient arrays
     must still be fully finite — a global-norm pass over the whole panel
     param (as any optimizer does) would otherwise see NaN."""
     rng = np.random.RandomState(11)
@@ -290,8 +273,7 @@ def test_compressed_uniform_blocks_no_nan_dump():
         w = P.sparse_softmax(spec, scores)
         return P.spmm(spec, w, vv)
 
-    st.set_backend("pallas")
-    try:
+    with route("pallas"):
         out = chain(lhs, rhs, v)
         grads = jax.grad(
             lambda l, r, vv: jnp.sum(chain(l, r, vv) ** 2),
@@ -300,8 +282,6 @@ def test_compressed_uniform_blocks_no_nan_dump():
         panel = jnp.asarray(P.values_to_panel_np(
             mat.topology, mat.values, 32, 32, compressed=True))
         gp = jax.grad(lambda p: jnp.sum(P.spmm(spec, p, v) ** 2))(panel)
-    finally:
-        st.set_backend("auto")
     assert np.isfinite(np.asarray(out)).all()
     for g in grads:
         assert np.isfinite(np.asarray(g)).all()

@@ -1,15 +1,11 @@
-"""Ragged KV append: Pallas kernel parity + the capacity invariant.
+"""Ragged KV append: per-slot writes + the capacity invariant.
 
-The round-2 verdict flagged two serving sharp edges this file pins down:
-
-* the per-slot cache append used to lower to a TPU scatter
-  (``vmap(dynamic_update_slice)``) — now a Pallas kernel
-  (``ops/pallas/ragged_append.py``) whose scalar-prefetched positions
-  drive the block index maps; kernel vs oracle parity is exact.
+* the per-slot cache append (``vmap(dynamic_update_slice)`` at each
+  replica's own position) writes exactly its token and nothing else;
 * a slot sitting at ``kv_len == s_max`` used to get its last real token
   silently overwritten by the clamped write (documented, unenforced).
-  The guard is now in the op on every path; the tests here corrupt
-  under the old behaviour and round-trip under the new one.
+  The guard is now in the op; the tests here corrupt under the old
+  behaviour and round-trip under the new one.
 """
 
 import jax
@@ -17,7 +13,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import sputnik_tpu as st
 from sputnik_tpu.ops.decode import (
     KVCache, append_kv, append_kv_seq, init_kv_cache)
 
@@ -51,9 +46,9 @@ def _filled_cache(R, s_max, hd, dtype, rng, lengths):
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16, jnp.int8])
-def test_kernel_matches_oracle(dtype):
-    """Pallas ragged append (interpret) == the vmapped-DUS oracle, at
-    ragged positions crossing 32-row block and 128-lane scale borders."""
+def test_ragged_append_writes_only_its_token(dtype):
+    """Each active replica's token lands at its own position (and
+    dequantizes back); every other cache row stays bit-identical."""
     R, s_max, hd = 5, 256, 48
     rng = np.random.RandomState(0)
     lengths = np.array([0, 31, 32, 127, 255])
@@ -62,29 +57,27 @@ def test_kernel_matches_oracle(dtype):
     v_new = jnp.asarray(rng.randn(R, hd).astype(np.float32))
     active = jnp.asarray([1, 1, 0, 1, 1], jnp.int32)
 
-    st.set_backend("xla")
-    try:
-        want = append_kv(cache, k_new, v_new, active=active)
-    finally:
-        st.set_backend("auto")
-    st.set_backend("pallas")
-    try:
-        got = append_kv(cache, k_new, v_new, active=active)
-    finally:
-        st.set_backend("auto")
-
-    for name in ("k", "v", "k_scale", "v_scale", "kv_len"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(got, name), np.float32),
-            np.asarray(getattr(want, name), np.float32), err_msg=name)
+    got = append_kv(cache, k_new, v_new, active=active)
+    tol = 1e-6 if dtype == jnp.float32 else 2e-2
+    for r in (0, 1, 3, 4):
+        p = int(lengths[r])
+        for buf, sc, new, old in ((got.k, got.k_scale, k_new, cache.k),
+                                  (got.v, got.v_scale, v_new, cache.v)):
+            tok = np.asarray(buf[r, p, :hd], np.float32) * float(sc[r, p])
+            np.testing.assert_allclose(tok, np.asarray(new[r]), rtol=tol,
+                                       atol=tol * 4)
+            rest = np.delete(np.arange(s_max), p)
+            np.testing.assert_array_equal(np.asarray(buf[r])[rest],
+                                          np.asarray(old[r])[rest])
+    np.testing.assert_array_equal(np.asarray(got.kv_len),
+                                  [1, 32, 32, 128, 256])
     # the frozen replica is bit-identical to its input
     np.testing.assert_array_equal(np.asarray(got.k[2]),
                                   np.asarray(cache.k[2]))
     assert int(got.kv_len[2]) == 32
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_capacity_slot_untouched(backend):
+def test_capacity_slot_untouched():
     """A replica at kv_len == s_max keeps its cache bit-identical through a
     ragged append — the round-2 clamped-write corruption, now enforced."""
     R, s_max, hd = 3, 128, 32
@@ -94,13 +87,9 @@ def test_capacity_slot_untouched(backend):
     k_new = jnp.asarray(rng.randn(R, hd).astype(np.float32))
     v_new = jnp.asarray(rng.randn(R, hd).astype(np.float32))
 
-    st.set_backend(backend)
-    try:
-        # replica 2 is ALSO frozen; replica 0 is active but full
-        out = append_kv(cache, k_new, v_new,
-                        active=jnp.asarray([1, 1, 0], jnp.int32))
-    finally:
-        st.set_backend("auto")
+    # replica 2 is ALSO frozen; replica 0 is active but full
+    out = append_kv(cache, k_new, v_new,
+                    active=jnp.asarray([1, 1, 0], jnp.int32))
 
     for r in (0, 2):
         np.testing.assert_array_equal(np.asarray(out.k[r]),
@@ -147,18 +136,14 @@ def test_seq_append_overflow_guard():
                                np.asarray(toks[:, 0]), rtol=1e-6)
 
 
-def test_int8_kernel_quantized_roundtrip():
-    """int8 cache through the kernel: appended token dequantizes back."""
+def test_int8_quantized_roundtrip():
+    """int8 cache: an appended token dequantizes back."""
     R, s_max, hd = 3, 128, 32
     rng = np.random.RandomState(4)
     cache = _filled_cache(R, s_max, hd, jnp.int8, rng, np.array([3, 7, 99]))
     k_new = jnp.asarray(rng.randn(R, hd).astype(np.float32))
     v_new = jnp.asarray(rng.randn(R, hd).astype(np.float32))
-    st.set_backend("pallas")
-    try:
-        out = append_kv(cache, k_new, v_new)
-    finally:
-        st.set_backend("auto")
+    out = append_kv(cache, k_new, v_new)
     for r, ln in enumerate((3, 7, 99)):
         got_k = (np.asarray(out.k[r, ln, :hd], np.float32)
                  * float(out.k_scale[r, ln]))
